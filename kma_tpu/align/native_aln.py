@@ -151,12 +151,6 @@ def get_lib():
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
         i32p, i32p, u8p, i32p, i32p, i32p, i32p, i32p, i32p,
         i32p, i32p]                      # lead_win, trail_win
-    lib.kaln_se_stage_msc.restype = None
-    lib.kaln_se_stage_msc.argtypes = [
-        vpp, u8p, i64p, u8p, i64p, i32p,
-        i32p, i32p, u8p, i32p, i32p, i32p, i32p, i32p, i32p,
-        i64p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int8), i32p, i32p, i32p, i32p]
     lib.kaln_se_stage_codes.restype = None
     lib.kaln_se_stage_codes.argtypes = [
         vpp, u8p, i64p, u8p, i64p,
@@ -376,34 +370,6 @@ def se_windows(handles, tpl_ids, tpl_off, codes_flat, codes_off,
     return wins, lead_win, trail_win
 
 
-def stage_msc(handles, codes_flat, codes_off, crc_flat, crc_off, rew,
-              wins, sel, R: int, L: int):
-    """Fill the Pallas kernel's staged inputs for the selected windows
-    (kaln_se_stage_msc).  Returns (msc [R, n, L] i8, tl, ql, kf, hb)."""
-    lib = get_lib()
-    d = _dmat(rew.d)
-    if crc_flat is None:
-        crc_flat = _EMPTY_U8
-        crc_off = np.zeros(len(codes_off), np.int64)
-    sel = np.ascontiguousarray(sel, np.int64)
-    n = len(sel)
-    msc = np.empty((R, n, L), np.int8)
-    tl = np.empty(n, np.int32)
-    ql = np.empty(n, np.int32)
-    kf = np.empty(n, np.int32)
-    hb = np.empty(n, np.int32)
-    lib.kaln_se_stage_msc(
-        handles.ctypes.data_as(ctypes.POINTER(ctypes.c_void_p)),
-        _u8p(codes_flat), _i64p(codes_off), _u8p(crc_flat),
-        _i64p(crc_off), _i32p(d), _i32p(wins["read"]),
-        _i32p(wins["cand"]), _u8p(wins["rc"]), _i32p(wins["ts"]),
-        _i32p(wins["te"]), _i32p(wins["qs"]), _i32p(wins["qe"]),
-        _i32p(wins["kf"]), _i32p(wins["band"]), _i64p(sel), n, R, L,
-        msc.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)), _i32p(tl),
-        _i32p(ql), _i32p(kf), _i32p(hb))
-    return msc, tl, ql, kf, hb
-
-
 def arm_pileup_export(n_rows: int, cap_bytes: int):
     """Arm the dense-assembly device-pileup export for the NEXT
     assembly_frags_batch call; returns the buffers to keep alive."""
@@ -430,8 +396,7 @@ def take_pileup_export():
 
 def stage_codes(handles, codes_flat, codes_off, crc_flat, crc_off,
                 wins, sel, R: int, L: int):
-    """Slim CODES staging for the device NW kernel
-    (kaln_se_stage_codes): ~2 bytes/row instead of stage_msc's L.
+    """Code staging for the device NW scorer (kaln_se_stage_codes).
     Returns (qc0 [n, L] u8, tcol [R, n] u8, inj [R, n] u8, tl, ql, kf,
     hb)."""
     lib = get_lib()

@@ -10,8 +10,7 @@ decomposes exactly (for any penalties) into
 
     Q[n] = max(D0[n+1] + W1, Q[n+1] + max(W1, U)),  D0 = max(P, Msc)
 
-which is a max-plus suffix scan — the same shape the Pallas TPU kernel (ops/nw_kernel.py) uses
-with jax.lax.associative_scan.  The 6-bit traceback byte E is reproduced
+which is a max-plus suffix scan — the same shape the device scorer (ops/nw_kernel.py) uses.  The 6-bit traceback byte E is reproduced
 bit-exactly (op bits 1-5, "locked" bits 16/32; nw.c:166-211).
 
 `k` encodes end-gap semantics (nw.c:26 callers, align.c:83-171):

@@ -21,10 +21,15 @@ def main(argv: List[str] = None) -> int:
         from . import tools
         return tools.dispatch(argv[0], argv[1:])
     if argv and argv[0] == "devserve":
-        # persistent TPU session daemon (the -shm analog for the device)
+        # persistent device session daemon (the -shm analog)
         from ..devserve import devserve_main
         return devserve_main(argv[1:])
-    return map_main(argv)
+    from ..pipeline import DeviceError
+    try:
+        return map_main(argv)
+    except DeviceError as err:
+        print("kma: %s" % err, file=sys.stderr)
+        return 1
 
 
 def index_main(argv: List[str]) -> int:
@@ -178,7 +183,7 @@ def index_main(argv: List[str]) -> int:
 def _help_message() -> None:
     """Compact -h listing (helpMessage, kma.c:102-215)."""
     print("# KMA-1.5.1 maps and/or aligns raw reads to a template "
-          "database (kma_tpu TPU-native build).")
+          "database (kma_tpu accelerator build).")
     print("# Options are:\t\tDesc:\t\t\t\tDefault:")
     for flag, desc, dflt in (
         ("-i", "Single end input", "STDIN"),
@@ -213,7 +218,7 @@ def _help_message() -> None:
         ("-xml", "XML output", "False"),
         ("-tsv", "TSV output (see -tsvh)", "False"),
         ("-sasm", "Skip alignment", "False"),
-        ("-device", "TPU step-2 scanner (on/off/auto)", "auto"),
+        ("-device", "device step-2 scanner (on/off/auto)", "auto"),
         ("-shm", "Use shared DB", "False"),
         ("-mmap", "Memory-map the DB", "False"),
         ("-v", "Version", ""),
@@ -278,7 +283,7 @@ def map_main(argv: List[str]) -> int:
             cfg.hmm = True
             cfg.one2one = False
         elif a == "-device":
-            # kma_tpu extension: auto|on|off TPU step-2 scanner
+            # kma_tpu extension: auto|on|off device step-2 scanner
             i += 1
             if argv[i] not in ("auto", "on", "off"):
                 print("# -device takes auto, on or off", file=sys.stderr)

@@ -130,9 +130,9 @@ class MapConfig:
     step1: bool = False  # -s1: emit the step-1 wire to stdout (kma.c:1439)
     step2: bool = False  # -s2: stdin step-1 wire -> anker wire on stdout
     mmap: bool = False   # -mmap: demand-page .comp.b (kmmap.c:33)
-    # TPU device mapping path: "auto" uses the device scanner whenever a
-    # non-CPU jax backend is present and the mode is device-eligible;
-    # "on" forces it (tests use this on the CPU backend), "off" disables.
+    # device mapping path: "auto" uses the device scanner on a GPU backend
+    # for large inputs; "on" always uses it and fails rather than fall
+    # back (tests use this on the CPU backend); "off" disables it.
     device: str = "auto"
 
     penalties: Penalties = dataclasses.field(default_factory=Penalties)

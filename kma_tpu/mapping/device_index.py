@@ -2,7 +2,7 @@
 
 The frozen hashmap (reference hashmapkma.c) holds the SEMANTICS
 (k-mer -> deduplicated template list); the device layout is re-derived for
-TPU gather efficiency rather than copied from the disk format:
+device gather efficiency rather than copied from the disk format:
 
 - ``exist[dsize]``  murmur-spread open table at low load factor, slot ->
   record index or -1; re-hashing shrinks bucket groups (the disk table
@@ -30,17 +30,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..index.format import KmaIndex
-
-# persistent compile cache: the scan graphs are large and XLA optimisation
-# dominates startup; cache survives across runs
-import os as _os
-_cache_dir = _os.path.join(_os.path.dirname(_os.path.dirname(
-    _os.path.dirname(_os.path.abspath(__file__)))), ".cache", "jax")
-try:
-    jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
-except Exception:
-    pass
 
 MURMUR_SEED = np.uint32(3323198485 & 0xFFFFFFFF)
 MURMUR_SEED2 = np.uint32(0x9747B28C)
@@ -71,6 +60,16 @@ def _cuckoo_build(keys: np.ndarray, voffs: np.ndarray, n: int,
     tsize = 1 << 16
     while tsize * 10 < n * 13:  # >= 1.3n per side
         tsize <<= 1
+    # the two murmur variants are correlated: a few key triples can
+    # share both buckets, which no walk resolves -- wider tables fix it
+    for grow in range(4):
+        got = _cuckoo_place(keys, voffs, n, tsize << grow, max_rounds)
+        if got is not None:
+            return got
+    return None
+
+
+def _cuckoo_place(keys, voffs, n: int, tsize: int, max_rounds: int):
     mask = np.uint32(tsize - 1)
     tab_k = np.zeros(2 * tsize, dtype=np.int64)
     tab_v = np.full(2 * tsize, -1, dtype=np.int64)
@@ -112,9 +111,9 @@ def _cuckoo_build(keys: np.ndarray, voffs: np.ndarray, n: int,
 class DeviceIndex:
     """JAX arrays of one frozen database (replicated or sharded).
 
-    Round-1 device path targets standard DBs (mlen <= 16, sizes < 2^31):
-    k-mers and offsets fit 32-bit lanes, the native TPU width.  Wider DBs
-    fall back to the host scanner until the 64-bit path lands.
+    The device path targets standard DBs (mlen <= 16, sizes < 2^31):
+    k-mers and offsets fit 32-bit lanes.  Wider DBs are refused (the host
+    scanner serves them) until a 64-bit path lands.
     """
 
     kmersize: int

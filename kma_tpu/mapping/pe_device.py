@@ -1,8 +1,8 @@
-"""Device (TPU) paired-end probe: batched hash lookups for both mates.
+"""Device paired-end probe: batched hash lookups for both mates.
 
 The PE scanners (get_kmers_for_pair, savekmers.c:427-688) spend their
 window loop on hash probes exactly like the chain scan; here the probes
-run on the chip (the chain_device lookup kernel over the DenseIndex
+run on the device (the chain_device lookup kernel over the DenseIndex
 cuckoo/mega tables, both strands per mate) and the per-window values
 offsets feed the native pair combiners through
 krun_map_pe_batch(va_f, va_r, vb_f, vb_r) /

@@ -5,7 +5,7 @@ against the frozen k-mer index; hits are grouped into runs of equal
 value-list identity and scored with the gap-classification heuristic.  The
 best-scoring template set is emitted as an "anker" record (ankers.c:30-50).
 
-The batched TPU paths (kma_tpu.mapping.scan_dense / scan_fast) reformulate
+The batched device paths (kma_tpu.mapping.scan_dense / scan_fast) reformulate
 the identical arithmetic as dense-membership / segmented reductions and are
 validated against this module.
 """

@@ -89,8 +89,7 @@ def rc_batch(codes: jax.Array, lengths: jax.Array) -> jax.Array:
     idx = lengths[:, None] - 1 - np.arange(L, dtype=np.int32)[None, :]
     ok = idx >= 0
     gathered = jnp.take_along_axis(codes, jnp.where(ok, idx, 0), axis=-1)
-    # arithmetic complement (0<->3, 1<->2, >=4 unchanged): a gather from a
-    # constant table lowers to a catastrophically slow path on TPU
+    # arithmetic complement (0<->3, 1<->2, >=4 unchanged), no table gather
     comp = jnp.where(gathered < 4, jnp.uint8(3) - gathered, gathered)
     return jnp.where(ok, comp, jnp.uint8(4))
 

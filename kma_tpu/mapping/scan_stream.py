@@ -2,7 +2,7 @@
 
 This is the production bridge between step 1 (host read parsing /
 trimming, io.pipeline.iter_reads) and step 3 (alignment): reads are
-buffered into fixed-shape batches, scanned on the TPU with
+buffered into fixed-shape batches, scanned on the device with
 scan_dense.DenseScanner, and re-emitted IN INPUT ORDER as the same
 AnkerHit records the host SaveKmersScanner produces (savekmers.c:
 2766-2833 emit rules), so the downstream ConClave spool order -- and
@@ -51,6 +51,7 @@ class DeviceScanStream:
                  exhaustive: bool = False, proxi_frac: Optional[float] = None,
                  batch: int = 4096, host: Optional[SaveKmersScanner] = None,
                  dense=None):
+        self.batches = 0   # device scan calls (diagnostics)
         if dense is not None:
             # pre-built scanner (e.g. devserve.RemoteDenseScanner): no
             # jax import / device setup in this process at all
@@ -133,6 +134,7 @@ class DeviceScanStream:
             codes[j, : len(c)] = c
             lengths[j] = len(c)
         res = self.dense.scan_reads(codes, lengths)
+        self.batches += 1
         if isinstance(res, tuple):
             scores, modes, tid_lists, over = res
         else:  # pair-stream ScanResult (scan_fast.py)

@@ -1,59 +1,89 @@
-"""Pallas TPU kernel: banded Needleman-Wunsch wavefront (score-only).
+"""Banded Needleman-Wunsch wavefront (score only), fed by codes.
 
 The hot loop of step-3 candidate scoring (NW_band_score, nw.c:892-1188;
 SURVEY hard part #1).  The reference's banded DP is sheared along the
 (t_len+q_len)/2 diagonal so each row's cells live at fixed band lanes:
 lane n of row m holds query position ``sq - (sn - n)`` and neighbours
-reduce to same/adjacent-lane reads of the previous row -- a wavefront
-that maps 1:1 onto TPU lanes.  The within-row affine-gap recurrence
-(Q[n] = max(D[n+1]+W1, Q[n+1]+U), nw.c:995-1010) is solved with a
-suffix max-scan over D0[n] + n*max(W1,U): opening from a gap-valued
-cell can never beat extending when W1 <= U, so the D<->Q cycle breaks
-(the same reformulation as the oracle-exact host row step, align/nw.py).
+reduce to same/adjacent-lane reads of the previous row.  The within-row
+affine-gap recurrence (Q[n] = max(D[n+1]+W1, Q[n+1]+U), nw.c:995-1010)
+is solved with a suffix max over D0[n] + n*max(W1,U): opening from a
+gap-valued cell can never beat extending when W1 <= U, so the D<->Q
+cycle breaks (the same reformulation as the oracle-exact host row step,
+align/nw.py).
 
-Geometry is staged on the XLA/host side: per row i (= t_len-1-m) the
-kernel reads a [GT, L] slab of match scores d[t_nuc][q[qpos]]
-precomputed for the row's band window, so the kernel sees no sequence
-data at all -- only the DP state, which stays in VMEM for the whole
-alignment.
+Inputs are codes, not staged scores.  The sheared geometry gives every
+row the query window qpos(n) = K + n - i, so one per-alignment query
+strip serves all rows:
 
-Scores are exact against nw_band (oracle-tested vs nw.c) for the k
-modes the production aligner issues (0, +-1, 2, -2) on non-circular
-windows; alignment STATS (len/match/gaps) need the E-byte backtrack and
-stay on the host/native path.  This kernel is the batched candidate
-scorer.
+  qext [B, R+L] u8 -- query codes over qpos = K-R+1+j (5 = out of range);
+                      row i lane n reads qext[:, R-1-i+n]
+  tcol [R, B] u8   -- template code of row i (template base t_len-1-i)
+
+and the match score is DMAT[tcol][qext] with row/column 5 scoring 0.
+
+Two implementations of one function, chosen by ops/platform.py:
+``nw_band_score_plain`` (jax.numpy: a fori_loop over rows with a
+reverse cummax) and a CUDA kernel (native/nw_band.cu) that runs one
+warp per alignment with the band lanes in registers.  Scores are exact
+against nw_band (oracle-tested vs nw.c) for the k modes the production
+aligner issues (0, +-1, 2, -2) on non-circular windows.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import os
+import shutil
+import subprocess
+import threading
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 NEG_CAP = np.int32(-(1 << 29))
 
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+CUDA_SRC = os.path.join(_REPO, "native", "nw_band.cu")
+CUDA_LIB = os.path.join(_REPO, ".cache", "cuda", "libkma_nw_band.so")
+_FFI_TARGET = "kma_nw_band"
 
-def _nw_band_kernel(tlen_ref, qlen_ref, kflag_ref, hband_ref, msc_ref,
-                    score_ref, *, L, GT, W1, U, MM):
-    lane = jax.lax.broadcasted_iota(jnp.int32, (GT, L), 1)
 
-    t_len = tlen_ref[:]          # [GT, 1] i32
-    q_len = qlen_ref[:]
-    kflag = kflag_ref[:]
-    half_band = hband_ref[:]     # [GT, 1] i32: per-alignment band/2
+def score_table(DMAT) -> np.ndarray:
+    """Flat 6x6 i8 score table; row/column 5 = out-of-range pad, 0."""
+    dm = np.zeros((6, 6), np.int8)
+    for t in range(5):
+        for q in range(5):
+            dm[t, q] = DMAT[t][q]
+    return dm.ravel()
+
+
+@functools.partial(jax.jit, static_argnames=("DMAT", "W1", "U", "MM"))
+def nw_band_score_plain(t_len, q_len, kflag, half_band, qext, tcol, *,
+                        DMAT, W1, U, MM):
+    """Batched banded-NW scores in jax.numpy (the reference twin of the
+    CUDA kernel).  t_len/q_len/kflag/half_band [B] i32, qext [B, R+L]
+    u8, tcol [R, B] u8; DMAT the 5x5 score matrix as a static tuple.
+    Returns scores [B] i32."""
+    R, B = tcol.shape
+    L = qext.shape[1] - R
+    dm = jnp.asarray(score_table(DMAT), jnp.int32)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (B, L), 1)
+    t_len = jnp.asarray(t_len, jnp.int32)[:, None]
+    q_len = jnp.asarray(q_len, jnp.int32)[:, None]
+    kflag = jnp.asarray(kflag, jnp.int32)[:, None]
+    half_band = jnp.asarray(half_band, jnp.int32)[:, None]
+    qext = qext.astype(jnp.int32)
     band = 2 * half_band
     bq_len = band + 1
-    neg = ((t_len + q_len) * np.int32(MM + U + W1)).astype(jnp.int32)
+    neg = (t_len + q_len) * np.int32(MM + U + W1)
     c_pos0 = (t_len + q_len) >> 1
     sn0 = q_len - 1 - (c_pos0 - half_band)
 
     # init row m == t_len (nw.c:975-995)
-    below = lane < sn0
-    Dp = jnp.where(below, np.int32(W1) + (sn0 - lane - 1) * np.int32(U),
+    Dp = jnp.where(lane < sn0, np.int32(W1) + (sn0 - lane - 1) * np.int32(U),
                    neg)
     Dp = jnp.where(lane == sn0, 0, Dp)
     Dp = jnp.where((kflag == 2) & (lane <= sn0), 0, Dp)
@@ -83,40 +113,29 @@ def _nw_band_kernel(tlen_ref, qlen_ref, kflag_ref, hband_ref, msc_ref,
         blane = jnp.where(interior, bq_len, sn_cell)
         top = blane - 1                        # last looped lane
 
-        msc = msc_ref[i].astype(jnp.int32)     # [GT, L]
+        qc = jax.lax.dynamic_slice_in_dim(qext, R - 1 - i, L, axis=1)
+        tc = jax.lax.dynamic_index_in_dim(tcol, i, 0, keepdims=False)
+        msc = dm[tc.astype(jnp.int32)[:, None] * 6 + qc]
 
         inloop = (lane >= en + 1) & (lane <= top)
-        Dp_m1 = pltpu.roll(Dp, 1, axis=1)      # D_prev[n-1]
-        Pp_m1 = pltpu.roll(Pp, 1, axis=1)
-        Popen = Dp_m1 + np.int32(W1)
-        Pext = Pp_m1 + np.int32(U)
-        P = jnp.maximum(Popen, Pext)
-        Msc = Dp + msc
-        D0 = jnp.maximum(P, Msc)
+        P = jnp.maximum(jnp.roll(Dp, 1, axis=1) + np.int32(W1),
+                        jnp.roll(Pp, 1, axis=1) + np.int32(U))
+        D0 = jnp.maximum(P, Dp + msc)
         # boundary value participates in the gap scan
         D0b = jnp.where(lane == blane, bval, D0)
         D0b = jnp.where(inloop | (lane == blane), D0b, NEG_CAP)
 
         # exclusive suffix max of D0b[j] + j*Up over j > n
         s = jnp.where(lane <= bq_len, D0b + lane_up, NEG_CAP)
-        # circular roll: left-shift by n == roll by L-n, wrap masked
-        s = pltpu.roll(s, L - 1, axis=1)
-        s = jnp.where(lane >= L - 1, NEG_CAP, s)
-        step = 1
-        while step < L:
-            t = pltpu.roll(s, L - step, axis=1)
-            t = jnp.where(lane >= L - step, NEG_CAP, t)
-            s = jnp.maximum(s, t)
-            step <<= 1
+        s = jnp.concatenate([s[:, 1:], jnp.full((B, 1), NEG_CAP)], axis=1)
+        s = jax.lax.cummax(s, axis=1, reverse=True)
         Q = s - (lane + 1) * Up + np.int32(W1)
 
         Dn = jnp.where(inloop, jnp.maximum(D0, Q), Dp)
         Pn = jnp.where(inloop, P, Pp)
-
         # the n == en boundary cell (nw.c:1100-1130): no P available
         at_en = lane == en
-        Den = jnp.maximum(Dp + msc, Q)
-        Dn = jnp.where(at_en, Den, Dn)
+        Dn = jnp.where(at_en, jnp.maximum(Dp + msc, Q), Dn)
         Pn = jnp.where(at_en, neg, Pn)
         # the edge cell when the band hits q_len-1
         at_edge = (~interior) & (lane == sn_cell)
@@ -134,18 +153,12 @@ def _nw_band_kernel(tlen_ref, qlen_ref, kflag_ref, hband_ref, msc_ref,
         track = active & (eq_raw <= 0) & (kflag < 0)
         best = jnp.where(track & (best < den), den, best)
 
-        Dn = jnp.where(active, Dn, Dp)
-        Pn = jnp.where(active, Pn, Pp)
-        D2 = jnp.where(active, Dp, Dp2)
-        P2 = jnp.where(active, Pp, Pp2)
-        en_next = jnp.where(active, en, en_prev)
-        return Dn, Pn, D2, P2, best, en_next
+        return (jnp.where(active, Dn, Dp), jnp.where(active, Pn, Pp),
+                jnp.where(active, Dp, Dp2), jnp.where(active, Pp, Pp2),
+                best, jnp.where(active, en, en_prev))
 
-    best0 = neg + jnp.int32(0)   # .copy() has no Pallas TPU lowering
-    en0 = jnp.zeros_like(t_len)
-    max_rows = jnp.max(t_len)
     Dp, Pp, _, _, best, en_fin = jax.lax.fori_loop(
-        0, max_rows, body, (Dp, Pp, Dp, Pp, best0, en0))
+        0, R, body, (Dp, Pp, Dp, Pp, neg, jnp.zeros_like(t_len)))
 
     # final score (nw.c:1155-1175)
     den = jnp.sum(jnp.where(lane == en_fin, Dp, 0), axis=1, keepdims=True)
@@ -153,283 +166,100 @@ def _nw_band_kernel(tlen_ref, qlen_ref, kflag_ref, hband_ref, msc_ref,
     row_max = jnp.max(jnp.where((lane >= en_fin) & (lane < bq_len), Dp,
                                 NEG_CAP), axis=1, keepdims=True)
     score = jnp.where(kflag == -2, jnp.maximum(score, row_max), score)
-    score_ref[:] = score
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("W1", "U", "MM", "GT", "interpret"))
-def nw_band_score_pallas(t_len, q_len, kflag, msc, *, half_band, W1, U,
-                         MM, GT=8, interpret=False):
-    """Batched banded-NW scores.
-
-    t_len/q_len/kflag [B] i32; half_band int or [B] i32 (per-alignment
-    bands mix in one dispatch; each lives in its own lane window); msc
-    [R, B, L] i8 staged match scores (stage_band_inputs); returns
-    scores [B] i32."""
-    R, B, L = msc.shape
-    n_tiles = B // GT
-    hb = jnp.broadcast_to(jnp.asarray(half_band, jnp.int32), (B,))
-    kern = functools.partial(_nw_band_kernel, L=L, GT=GT,
-                             W1=W1, U=U, MM=MM)
-    score = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((B, 1), jnp.int32),
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, GT, L), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(t_len[:, None].astype(jnp.int32), q_len[:, None].astype(jnp.int32),
-      kflag[:, None].astype(jnp.int32), hb[:, None], msc)
     return score[:, 0]
 
 
-def _nw_band_codes_kernel(tlen_ref, qlen_ref, kflag_ref, hband_ref,
-                          qc0_ref, ti_ref, score_ref, *,
-                          L, GT, W1, U, MM, DMAT):
-    """Banded-NW wavefront fed by 2-bit-style CODES instead of staged
-    match-score slabs.
+# -- CUDA kernel (GPU) --------------------------------------------------------
 
-    The sheared band geometry collapses to qpos(n) = (c0-half) + n - i
-    for EVERY row (verified against kaln_se_stage_msc's branches), so
-    the per-row query window is a one-lane roll of the previous row's
-    window with one code injected at lane 0.  Staged bytes drop from
-    span*L (the r4 slab) to ~2*span + L per alignment (~100x), which is
-    what lets the pre-pass engage through a thin host<->device link.
-    Codes: query 0..4 (4 = N), 5 = out-of-range pad whose match score
-    is 0 (the slab stager's zero-fill); template 0..4."""
-    lane = jax.lax.broadcasted_iota(jnp.int32, (GT, L), 1)
-
-    t_len = tlen_ref[:]          # [GT, 1] i32
-    q_len = qlen_ref[:]
-    kflag = kflag_ref[:]
-    half_band = hband_ref[:]     # [GT, 1] i32
-    band = 2 * half_band
-    bq_len = band + 1
-    neg = ((t_len + q_len) * np.int32(MM + U + W1)).astype(jnp.int32)
-    c_pos0 = (t_len + q_len) >> 1
-    sn0 = q_len - 1 - (c_pos0 - half_band)
-
-    below = lane < sn0
-    Dp = jnp.where(below, np.int32(W1) + (sn0 - lane - 1) * np.int32(U),
-                   neg)
-    Dp = jnp.where(lane == sn0, 0, Dp)
-    Dp = jnp.where((kflag == 2) & (lane <= sn0), 0, Dp)
-    Pp = jnp.where((lane == sn0) & (kflag != 2), 0, neg)
-    Dp = jnp.where(lane > bq_len, NEG_CAP, Dp)
-    Pp = jnp.where(lane > bq_len, NEG_CAP, Pp)
-
-    Up = np.int32(max(W1, U))
-    lane_up = lane * Up
-    Qc0 = qc0_ref[:].astype(jnp.int32)          # [GT, L] pre-rolled row
-
-    def lut(tc, qc):
-        # msc = DMAT[tc][qc] via unrolled selects (DMAT is static)
-        msc = jnp.zeros_like(qc)
-        for t in range(5):
-            v = jnp.full_like(qc, np.int32(DMAT[t][4]))
-            for q in range(4):
-                v = jnp.where(qc == q, np.int32(DMAT[t][q]), v)
-            v = jnp.where(qc >= 5, 0, v)        # pad code -> slab zero
-            msc = jnp.where(tc == t, v, msc)
-        return msc
-
-    def body(i, carry):
-        Dp, Pp, Dp2, Pp2, best, en_prev, Qc = carry
-        c_pos = c_pos0 - i
-        m = t_len - 1 - i
-        active = m >= 0
-        sq_raw = c_pos + half_band
-        eq_raw = c_pos - half_band
-        en = jnp.where(eq_raw < 0, en_prev + 1, 0)
-        eq = jnp.maximum(eq_raw, 0)
-
-        interior = sq_raw < (q_len - 1)
-        sn_cell = en + (q_len - eq)
-        edge_val = jnp.where(kflag > 0, 0,
-                             np.int32(W1) + (t_len - 1 - m) * np.int32(U))
-        bval = jnp.where(interior, neg, edge_val)
-        blane = jnp.where(interior, bq_len, sn_cell)
-        top = blane - 1
-
-        # roll the query window one lane and inject the entering code
-        # (ti lane 0 = template code of row i, lane 1 = entering query
-        # code; lanes 2+ pad for the TPU block layout)
-        Qc = pltpu.roll(Qc, 1, axis=1)
-        ti = ti_ref[i].astype(jnp.int32)       # [GT, 128]
-        injv = ti[:, 1:2]
-        Qc = jnp.where(lane == 0, injv, Qc)
-        tc = ti[:, 0:1]
-        msc = lut(tc, Qc)
-
-        inloop = (lane >= en + 1) & (lane <= top)
-        Dp_m1 = pltpu.roll(Dp, 1, axis=1)
-        Pp_m1 = pltpu.roll(Pp, 1, axis=1)
-        Popen = Dp_m1 + np.int32(W1)
-        Pext = Pp_m1 + np.int32(U)
-        P = jnp.maximum(Popen, Pext)
-        Msc = Dp + msc
-        D0 = jnp.maximum(P, Msc)
-        D0b = jnp.where(lane == blane, bval, D0)
-        D0b = jnp.where(inloop | (lane == blane), D0b, NEG_CAP)
-
-        s = jnp.where(lane <= bq_len, D0b + lane_up, NEG_CAP)
-        s = pltpu.roll(s, L - 1, axis=1)
-        s = jnp.where(lane >= L - 1, NEG_CAP, s)
-        step = 1
-        while step < L:
-            t = pltpu.roll(s, L - step, axis=1)
-            t = jnp.where(lane >= L - step, NEG_CAP, t)
-            s = jnp.maximum(s, t)
-            step <<= 1
-        Q = s - (lane + 1) * Up + np.int32(W1)
-
-        Dn = jnp.where(inloop, jnp.maximum(D0, Q), Dp)
-        Pn = jnp.where(inloop, P, Pp)
-
-        at_en = lane == en
-        Den = jnp.maximum(Dp + msc, Q)
-        Dn = jnp.where(at_en, Den, Dn)
-        Pn = jnp.where(at_en, neg, Pn)
-        at_edge = (~interior) & (lane == sn_cell)
-        Dn = jnp.where(at_edge, edge_val, Dn)
-        Pn = jnp.where(at_edge, neg, Pn)
-        written = (lane >= en) & (lane <= blane)
-        Dn = jnp.where(written, Dn, Dp2)
-        Pn = jnp.where(written, Pn, Pp2)
-
-        den = jnp.sum(jnp.where(at_en, Dn, 0), axis=1, keepdims=True)
-        track = active & (eq_raw <= 0) & (kflag < 0)
-        best = jnp.where(track & (best < den), den, best)
-
-        Dn = jnp.where(active, Dn, Dp)
-        Pn = jnp.where(active, Pn, Pp)
-        D2 = jnp.where(active, Dp, Dp2)
-        P2 = jnp.where(active, Pp, Pp2)
-        en_next = jnp.where(active, en, en_prev)
-        return Dn, Pn, D2, P2, best, en_next, Qc
-
-    best0 = neg + jnp.int32(0)
-    en0 = jnp.zeros_like(t_len)
-    max_rows = jnp.max(t_len)
-    Dp, Pp, _, _, best, en_fin, _ = jax.lax.fori_loop(
-        0, max_rows, body, (Dp, Pp, Dp, Pp, best0, en0, Qc0))
-
-    den = jnp.sum(jnp.where(lane == en_fin, Dp, 0), axis=1, keepdims=True)
-    score = jnp.where(kflag < 0, jnp.maximum(best, den), den)
-    row_max = jnp.max(jnp.where((lane >= en_fin) & (lane < bq_len), Dp,
-                                NEG_CAP), axis=1, keepdims=True)
-    score = jnp.where(kflag == -2, jnp.maximum(score, row_max), score)
-    score_ref[:] = score
+_cuda_lock = threading.Lock()
+_cuda_ready = False
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("W1", "U", "MM", "DMAT", "GT",
-                                    "interpret"))
-def nw_band_score_codes_pallas(t_len, q_len, kflag, half_band, qc0, tcol,
-                               inj, *, DMAT, W1, U, MM, GT=8,
-                               interpret=False):
-    """Batched banded-NW scores from CODE inputs (slim staging).
-
-    t_len/q_len/kflag/half_band [B] i32; qc0 [B, L] u8 (pre-rolled
-    row--1 query codes: lane n = code at qpos (c0-half)+1+n, 5 = pad);
-    tcol/inj [R, B] u8 (template code of row i; query code entering at
-    lane 0 on row i).  DMAT is the 5x5 score matrix as a static tuple
-    of tuples.  Returns scores [B] i32."""
-    R, B = tcol.shape
-    L = qc0.shape[1]
-    n_tiles = B // GT
-    hb = jnp.broadcast_to(jnp.asarray(half_band, jnp.int32), (B,))
-    # tcol/inj travel H2D as [R, B] (the slim part); the TPU block
-    # layout wants a >=128 last dim, so they fuse into one lane-padded
-    # [R, B, 128] u8 ON DEVICE (XLA pad, no extra host->device bytes)
-    ti = jnp.stack([jnp.asarray(tcol, jnp.uint8),
-                    jnp.asarray(inj, jnp.uint8)], axis=-1)
-    ti = jnp.pad(ti, ((0, 0), (0, 0), (0, 126)))
-    kern = functools.partial(_nw_band_codes_kernel, L=L, GT=GT,
-                             W1=W1, U=U, MM=MM, DMAT=DMAT)
-    score = pl.pallas_call(
-        kern,
-        out_shape=jax.ShapeDtypeStruct((B, 1), jnp.int32),
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, L), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((R, GT, 128), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((GT, 1), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret,
-    )(t_len[:, None].astype(jnp.int32), q_len[:, None].astype(jnp.int32),
-      kflag[:, None].astype(jnp.int32), hb[:, None], qc0, ti)
-    return score[:, 0]
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the GPU NW kernel is built from "
+                           "native/nw_band.cu with the CUDA toolkit")
+    return nvcc
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("W1", "U", "MM", "DMAT", "GT",
-                                    "interpret"))
-def nw_band_score_qext_pallas(t_len, q_len, kflag, half_band, qext, tcol,
-                              *, DMAT, W1, U, MM, GT=64,
-                              interpret=False):
-    """Slim-staged banded-NW scores: codes travel H2D, the match-score
-    slab is expanded ON DEVICE (two XLA gathers, HBM-resident), and the
-    DP runs in the proven wavefront kernel (_nw_band_kernel).
-
-    qext [B, R+L] u8: query codes over qpos = K-R+1+j (5 = pad);
-    tcol [R, B] u8 template codes (row i = template base t_len-1-i).
-    Row i lane n reads qext[:, (R-1-i)+n] -- the sheared-band identity
-    qpos(n) = K + n - i.  H2D drops ~L-fold vs shipping the slab."""
-    R, B = tcol.shape
-    L = qext.shape[1] - R
-    # flat 6x6 score table; row/col 5 = out-of-range pad scoring 0
-    dm = np.zeros((6, 6), np.int8)
-    for t in range(5):
-        for q in range(5):
-            dm[t, q] = DMAT[t][q]
-    dm = jnp.asarray(dm.ravel())
-    i_idx = jnp.arange(R, dtype=jnp.int32)
-    j_idx = (R - 1 - i_idx)[:, None] + jnp.arange(L, dtype=jnp.int32)
-    qc = qext[:, j_idx]                        # [B, R, L] u8 gather
-    qc = jnp.transpose(qc, (1, 0, 2))          # [R, B, L]
-    flat = tcol[:, :, None].astype(jnp.int32) * 6 + qc.astype(jnp.int32)
-    msc = dm[flat]                             # [R, B, L] i8
-    return nw_band_score_pallas(t_len, q_len, kflag, msc,
-                                half_band=half_band, W1=W1, U=U, MM=MM,
-                                GT=GT, interpret=interpret)
+def build_cuda_lib() -> str:
+    """Compile native/nw_band.cu for Hopper (sm_90a) into .cache/cuda
+    when the library is missing or older than its source."""
+    if (os.path.exists(CUDA_LIB)
+            and os.path.getmtime(CUDA_LIB) >= os.path.getmtime(CUDA_SRC)):
+        return CUDA_LIB
+    os.makedirs(os.path.dirname(CUDA_LIB), exist_ok=True)
+    tmp = "%s.%d.tmp" % (CUDA_LIB, os.getpid())
+    subprocess.run(
+        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-I", jax.ffi.include_dir(), "-o", tmp, CUDA_SRC],
+        check=True, capture_output=True)
+    os.replace(tmp, CUDA_LIB)
+    return CUDA_LIB
 
 
-def stage_code_inputs(templates, queries, t_lens, q_lens, band):
-    """Host staging for nw_band_score_codes_pallas (test/bench path; the
-    production stager is native kaln_se_stage_codes).  Returns
-    (t_len, q_len, hb, qc0 [B, L] u8, tcol [R, B] u8, inj [R, B] u8)."""
+def _register_cuda() -> None:
+    global _cuda_ready
+    with _cuda_lock:
+        if _cuda_ready:
+            return
+        lib = ctypes.cdll.LoadLibrary(build_cuda_lib())
+        jax.ffi.register_ffi_target(
+            _FFI_TARGET, jax.ffi.pycapsule(lib.KmaNwBand), platform="CUDA")
+        _cuda_ready = True
+
+
+@functools.partial(jax.jit, static_argnames=("DMAT", "W1", "U", "MM"))
+def _nw_band_score_cuda(t_len, q_len, kflag, half_band, qext, tcol, *,
+                        DMAT, W1, U, MM):
+    B = tcol.shape[1]
+    call = jax.ffi.ffi_call(_FFI_TARGET,
+                            jax.ShapeDtypeStruct((B,), jnp.int32))
+    return call(jnp.asarray(t_len, jnp.int32),
+                jnp.asarray(q_len, jnp.int32),
+                jnp.asarray(kflag, jnp.int32),
+                jnp.asarray(half_band, jnp.int32),
+                jnp.asarray(qext, jnp.uint8), jnp.asarray(tcol, jnp.uint8),
+                jnp.asarray(score_table(DMAT)),
+                W1=np.int32(W1), U=np.int32(U), MM=np.int32(MM))
+
+
+#: lane widths the CUDA kernel is instantiated for (32 lanes per warp
+#: times 4 or 8 cells per thread)
+CUDA_LANES = (128, 256)
+
+
+def nw_band_score(t_len, q_len, kflag, half_band, qext, tcol, *, DMAT, W1,
+                  U, MM):
+    """Batched banded-NW scores [B] i32 on this process's platform: the
+    CUDA kernel on the GPU, nw_band_score_plain on the CPU."""
+    from .platform import use_kernels
+    kw = dict(DMAT=DMAT, W1=int(W1), U=int(U), MM=int(MM))
+    if use_kernels():
+        L = qext.shape[1] - tcol.shape[0]
+        if L not in CUDA_LANES:
+            raise ValueError("NW lane width %d not in %s" % (L, CUDA_LANES))
+        _register_cuda()
+        return _nw_band_score_cuda(t_len, q_len, kflag, half_band, qext,
+                                   tcol, **kw)
+    return nw_band_score_plain(t_len, q_len, kflag, half_band, qext, tcol,
+                               **kw)
+
+
+def stage_code_inputs(templates, queries, t_lens, q_lens, band, L=None):
+    """Host staging for nw_band_score (test/bench path; the production
+    stager is native kaln_se_stage_codes).  Returns (t_len, q_len, hb,
+    qext [B, R+L] u8, tcol [R, B] u8)."""
     B = len(templates)
     bands = np.broadcast_to(np.asarray(band, np.int32), (B,)).copy()
     bands += bands & 1
-    L = -(-(int(bands.max()) + 2) // 128) * 128
+    if L is None:
+        L = -(-(int(bands.max()) + 2) // 128) * 128
     R = int(max(int(t) for t in t_lens))
-    qc0 = np.full((B, L), 5, np.uint8)
+    qext = np.full((B, R + L), 5, np.uint8)
     tcol = np.zeros((R, B), np.uint8)
-    inj = np.full((R, B), 5, np.uint8)
     for b in range(B):
         half = int(bands[b]) // 2
         t = np.asarray(templates[b])
@@ -440,55 +270,10 @@ def stage_code_inputs(templates, queries, t_lens, q_lens, band):
         # is wider than the alignment (c0 < half): then en = i+1 on
         # every row and the offset saturates at -1
         K = max(((t_len + q_len) >> 1) - half, -1)
-        n = np.arange(L)
-        qpos = K + 1 + n
+        qpos = K - R + 1 + np.arange(R + L)
         ok = (qpos >= 0) & (qpos < q_len)
-        qc0[b, ok] = q[qpos[ok]]
+        qext[b, ok] = q[qpos[ok]]
         rows = np.arange(min(t_len, R))
         tcol[rows, b] = t[t_len - 1 - rows]
-        qp = K - rows
-        okr = (qp >= 0) & (qp < q_len)
-        inj[rows[okr], b] = q[qp[okr]]
     return (np.asarray(t_lens, np.int32), np.asarray(q_lens, np.int32),
-            (bands // 2).astype(np.int32), qc0, tcol, inj)
-
-
-def stage_band_inputs(templates, queries, t_lens, q_lens, band, d):
-    """Host staging of the per-row band match scores (nw.c:958-1035
-    geometry): msc[i, b, n] = d[t_nuc(m)][query[qpos(n)]] for row
-    i = t_len-1-m.  ``band`` is an int or a per-alignment array.
-    Returns (t_len, q_len, msc[R, B, L] i8)."""
-    B = len(templates)
-    bands = np.broadcast_to(np.asarray(band, np.int32), (B,)).copy()
-    bands += bands & 1
-    L = -(-(int(bands.max()) + 2) // 128) * 128
-    R = int(max(int(t) for t in t_lens))
-    msc = np.zeros((R, B, L), dtype=np.int8)
-    for b in range(B):
-        half = int(bands[b]) // 2
-        bq_len = int(bands[b]) + 1
-        t = np.asarray(templates[b])
-        q = np.asarray(queries[b])
-        t_len = int(t_lens[b])
-        q_len = int(q_lens[b])
-        c0 = (t_len + q_len) >> 1
-        en = 0
-        for i in range(t_len):
-            m = t_len - 1 - i
-            c_pos = c0 - i
-            sq = c_pos + half
-            # en counts CONSECUTIVE sub-zero band floors (nw.c:1030-1036)
-            en = en + 1 if (c_pos - half) < 0 else 0
-            eq = max(c_pos - half, 0)
-            if sq < q_len - 1:
-                sn_eff = bq_len - 1
-                sq_eff = sq
-            else:
-                sq_eff = q_len - 1
-                sn_eff = en + (q_len - eq) - 1
-            ns = np.arange(en, sn_eff + 1)
-            qpos = sq_eff - (sn_eff - ns)
-            ok = (qpos >= 0) & (qpos < q_len)
-            msc[i, b, ns[ok]] = d[int(t[m]), q[qpos[ok]]]
-    return (np.asarray(t_lens, np.int32), np.asarray(q_lens, np.int32),
-            msc)
+            (bands // 2).astype(np.int32), qext, tcol)

@@ -1,4 +1,4 @@
-"""Device pileup: the assembly count-matrix scatter on the chip.
+"""Device pileup: the assembly count-matrix scatter on the device.
 
 The per-template pileup (alnToMatDense, assembly.c:1446-1497; SURVEY
 hot loop #3) walks each accepted fragment's aligned (template, query)
@@ -68,10 +68,9 @@ def pileup_dense_sharded(mesh, aln_t, aln_q, lens, starts, *, t_len,
     partial matrices psum over ``axis`` (the spltDB / threaded-assembly
     count all-reduce).  Row count must divide the axis size."""
     import jax
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import PartitionSpec as P
 
-    @functools.partial(shard_map, mesh=mesh,
+    @functools.partial(jax.shard_map, mesh=mesh,
                        in_specs=(P(axis), P(axis), P(axis), P(axis)),
                        out_specs=P())
     def _go(t, q, ln, st):

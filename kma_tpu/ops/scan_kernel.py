@@ -1,51 +1,52 @@
-"""Pallas TPU kernel: fused save_kmers run-scoring loop.
+"""Pallas (Triton) kernel: the dense -1t1 scan's run-scoring loop.
 
-This is the hot loop of the dense -1t1 scanner (savekmers.c:2573-2625
-flush logic, vectorised over templates).  The XLA formulation in
-scan_dense._dense_strand_scan round-trips three [G, t_pad] state arrays
-through HBM once per CHUNK of run slots; this kernel keeps the state
-resident in VMEM across ALL runs of a G-tile, so HBM sees each state
-element exactly once (the final write) plus the pre-gathered membership
-bits.
+This is the hot loop of the dense scanner (savekmers.c:2573-2625 flush
+logic, vectorised over templates).  Each template's state -- score,
+extend position and first-inclusion run -- is independent of every
+other template's and is carried through a sequential loop over the
+read's runs.  The plain XLA loop (scan_dense._dense_strand_scan) writes
+the three [G, t_pad] state arrays to device memory and reads them back
+once per chunk of runs; this kernel gives each block a tile of GT rows
+by TT templates, keeps that tile's state in registers for the whole
+loop, reads each run's membership word straight from the bit table
+(small enough to stay in L2 for a gene panel) and writes score and
+first once.
 
-Layout per grid step (one tile of GT strand-rows):
-  memb   [GT, R, W32] u32  -- bit-packed template membership of the run's
-                              value list (bits[run_row], gathered by XLA)
-  rstart [GT, R] i32       -- run start window
-  rend   [GT, R] i32       -- run end window
-  rscore [GT, R] i32       -- in-run transition score sum
-  ract   [GT, R] i32       -- 1 if the run slot is live
-  rc     [GT, 1] i32       -- 1 for reverse-complement rows (the SNP
-                              reconnect term differs, savekmers.c:2901)
-  rmax   [tiles] i32       -- per-tile live-run bound (scalar prefetch)
-outputs:
-  score  [GT, T] i32, first [GT, T] i32 (run index of first inclusion,
-  BIG if never included) -- consumed by the existing XLA epilogue.
-
-Membership bits expand in-kernel via pltpu.repeat, which TILES the word
-row 32 times (lane j holds word j % W32).  The index therefore packs the
-membership TRANSPOSED for this kernel: template t lives in word t % W32,
-bit t // W32 (DenseIndex.bits_t), so lane t tests exactly template t.
+Inputs (G strand rows, R run slots, V value lists):
+  rmax   [G // GT] i32 -- live-run bound of each row tile
+  run_row, rstart, rend, rscore, ract  [G, R] i32 -- per-run list id,
+         start window, end window, in-run score, 1 if the slot is live
+  rc     [G] i32 -- 1 for reverse-complement rows (the SNP reconnect
+         term differs, savekmers.c:2901)
+  bits   [V, t_pad // 32] u32 -- template t of list v is bit t % 32 of
+         word t // 32 of row v
+Outputs: score [G, t_pad] i32 and first [G, t_pad] i32 (run index of
+first inclusion, BIG if never included), consumed by the XLA epilogue.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 BIG = np.int32(0x3FFFFFFF)
+GT = 16    # strand rows per block
+TT = 128   # templates per block (t_pad is a multiple of 128)
 
 
 def _gap_mm_terms(g_, k, M, MM, U, W1):
-    """kmersize<gap branch (savekmers.c:2536-2557); g_ = gap - (k-1)."""
+    """kmersize<gap branch (savekmers.c:2536-2557); g_ = gap - (k-1).
+    Only lanes with g_ > 1 are selected downstream, so truncating
+    division equals the reference's on every lane that counts."""
     small = g_ <= 2
-    mm_big = jnp.maximum(2, g_ // k + jnp.where(g_ % k != 0, 1, 0))
+    q = jax.lax.div(g_, np.int32(k))
+    r = jax.lax.rem(g_, np.int32(k))
+    mm_big = jnp.maximum(2, q + jnp.where(r != 0, 1, 0))
     mm = jnp.where(small, g_, mm_big)
     m = jnp.where(small, 0, jnp.minimum(jnp.minimum(g_ - mm_big, k), mm_big))
     gap_opt = W1 + (g_ - 1) * U
@@ -69,200 +70,64 @@ def _reconnect(gap, rc, k, mlen, M, MM, U, W1):
                                jnp.where(big, s_big, s_small)))
 
 
-def _run_loop_kernel(rmax_ref, memb_ref, rstart_ref, rend_ref, rscore_ref,
-                     ract_ref, rc_ref, score_ref, first_ref, ext_ref,
-                     *, k, mlen, M, MM, U, W1, T, GT, W32):
+def _run_loop_kernel(rmax_ref, run_row_ref, rstart_ref, rend_ref,
+                     rscore_ref, ract_ref, rc_ref, bits_ref, score_ref,
+                     first_ref, *, k, mlen, M, MM, U, W1):
     i = pl.program_id(0)
-    score_ref[:] = jnp.zeros((GT, T), jnp.int32)
-    first_ref[:] = jnp.full((GT, T), BIG, jnp.int32)
-    ext_ref[:] = jnp.zeros((GT, T), jnp.int32)
-    lane = jax.lax.broadcasted_iota(jnp.uint32, (GT, T), 1)
-    bitsel = lane // jnp.uint32(W32)   # transposed packing (see module doc)
-    rc = rc_ref[:]                       # [GT, 1]
+    j = pl.program_id(1)
+    rows = i * GT + jnp.arange(GT, dtype=jnp.int32)
+    tpl = j * TT + jnp.arange(TT, dtype=jnp.int32)
+    word = (tpl // 32)[None, :]
+    shift = (tpl % 32).astype(jnp.uint32)[None, :]
+    rc = rc_ref[rows][:, None]
     kM = np.int32(k * M)
-    # Mosaic has no dynamic lane indexing: select run r's column / memb
-    # plane with iota==r masked reductions (cheap: R lanes per row)
-    run_lane = jax.lax.broadcasted_iota(jnp.int32, (GT, memb_ref.shape[1]),
-                                        1)
-    memb_sub = jax.lax.broadcasted_iota(jnp.int32, memb_ref.shape, 1)
 
-    def col(ref, r):
-        return jnp.sum(jnp.where(run_lane == r, ref[:], 0), axis=1,
-                       keepdims=True)
-
-    def body(r, _):
-        # Mosaic lacks unsigned reductions: select/sum the single matching
-        # sublane in i32 (bit pattern survives the round trip)
-        mrow = jnp.sum(jnp.where(memb_sub == r,
-                                 memb_ref[:].astype(jnp.int32), 0),
-                       axis=1).astype(jnp.uint32)   # [GT, W32]
-        rep = pltpu.repeat(mrow, 32, axis=1)   # word j%W32 at lane j
-        membv = ((rep >> bitsel) & jnp.uint32(1)) != 0
-        act = col(ract_ref, r) != 0
-        ism = act & membv
-        first = first_ref[:]
+    def body(r, state):
+        score, ext, first = state
+        memb = bits_ref[run_row_ref[rows, r][:, None], word]   # [GT, TT]
+        act = (ract_ref[rows, r] != 0)[:, None]
+        ism = act & (((memb >> shift) & np.uint32(1)) != 0)
         inc = first < BIG
-        g = (col(rstart_ref, r) - 1) - ext_ref[:]
+        g = (rstart_ref[rows, r][:, None] - 1) - ext
         rec = _reconnect(g, rc, k, mlen, M, MM, U, W1)
-        contrib = col(rscore_ref, r) + jnp.where(inc, rec, kM)
-        score_ref[:] = jnp.where(ism, score_ref[:] + contrib, score_ref[:])
-        first_ref[:] = jnp.where(ism & ~inc, r, first)
-        ext_ref[:] = jnp.where(ism, col(rend_ref, r), ext_ref[:])
-        return 0
+        contrib = rscore_ref[rows, r][:, None] + jnp.where(inc, rec, kM)
+        score = jnp.where(ism, score + contrib, score)
+        first = jnp.where(ism & ~inc, r, first)
+        ext = jnp.where(ism, rend_ref[rows, r][:, None], ext)
+        return score, ext, first
 
-    jax.lax.fori_loop(0, rmax_ref[i], body, 0)
-
-
-def _run_loop_kernel_vmem(rmax_ref, memb_smem, tab_ref, rstart_ref,
-                          rend_ref, rscore_ref, ract_ref, rc_ref,
-                          score_ref, first_ref, ext_ref,
-                          *, k, mlen, M, MM, U, W1, T, GT, W32):
-    """Variant of _run_loop_kernel with the WHOLE bit-packed membership
-    table resident in VMEM (tab_ref [V8, W32]); each run's row is fetched
-    by dynamic leading-axis indexing via the SMEM run-row block
-    (memb_smem [GT, R] i32).  Removes the [G, R, W32] HBM gather the
-    pre-gathered variant needs (the dominant input cost for gene-panel
-    DBs whose table fits on-chip)."""
-    i = pl.program_id(0)
-    score_ref[:] = jnp.zeros((GT, T), jnp.int32)
-    first_ref[:] = jnp.full((GT, T), BIG, jnp.int32)
-    ext_ref[:] = jnp.zeros((GT, T), jnp.int32)
-    lane = jax.lax.broadcasted_iota(jnp.uint32, (GT, T), 1)
-    bitsel = lane // jnp.uint32(W32)
-    rc = rc_ref[:]
-    kM = np.int32(k * M)
-    run_lane = jax.lax.broadcasted_iota(jnp.int32, (GT, rstart_ref.shape[1]),
-                                        1)
-
-    def col(ref, r):
-        return jnp.sum(jnp.where(run_lane == r, ref[:], 0), axis=1,
-                       keepdims=True)
-
-    def body(r, _):
-        mrow = jnp.concatenate(
-            [tab_ref[memb_smem[g, r]][None, :] for g in range(GT)],
-            axis=0)                         # [GT, W32] u32
-        rep = pltpu.repeat(mrow, 32, axis=1)
-        membv = ((rep >> bitsel) & jnp.uint32(1)) != 0
-        act = col(ract_ref, r) != 0
-        ism = act & membv
-        first = first_ref[:]
-        inc = first < BIG
-        g = (col(rstart_ref, r) - 1) - ext_ref[:]
-        rec = _reconnect(g, rc, k, mlen, M, MM, U, W1)
-        contrib = col(rscore_ref, r) + jnp.where(inc, rec, kM)
-        score_ref[:] = jnp.where(ism, score_ref[:] + contrib, score_ref[:])
-        first_ref[:] = jnp.where(ism & ~inc, r, first)
-        ext_ref[:] = jnp.where(ism, col(rend_ref, r), ext_ref[:])
-        return 0
-
-    jax.lax.fori_loop(0, rmax_ref[i], body, 0)
+    zero = jnp.zeros((GT, TT), jnp.int32)
+    init = (zero, zero, jnp.full((GT, TT), BIG, jnp.int32))
+    score, _, first = jax.lax.fori_loop(0, rmax_ref[i], body, init)
+    score_ref[...] = score
+    first_ref[...] = first
 
 
 @functools.partial(jax.jit, static_argnames=("sparams", "interpret"))
-def run_score_pallas_vmem(tab, run_row, rstart, rend, rscore, ract,
-                          rc_rows, rmax_tile, *, sparams, interpret=False):
-    """VMEM-table dense run scoring: tab [V8, W32] u32 (whole membership
-    table), run_row [G, R] i32 row per run slot; rest as
-    run_score_pallas."""
-    k, mlen, M, MM, U, W1, T, GT = sparams
-    G, R = run_row.shape
-    V8, W32 = tab.shape
-    n_tiles = G // GT
-    kern = functools.partial(_run_loop_kernel_vmem, k=k, mlen=mlen, M=M,
-                             MM=MM, U=U, W1=W1, T=T, GT=GT, W32=W32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((GT, R), lambda i, *_: (i, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((V8, W32), lambda i, *_: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, R), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, R), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, R), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, R), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, 1), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((GT, T), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, T), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[pltpu.VMEM((GT, T), jnp.int32)],
-    )
-    score, first = pl.pallas_call(
-        kern,
-        out_shape=[jax.ShapeDtypeStruct((G, T), jnp.int32),
-                   jax.ShapeDtypeStruct((G, T), jnp.int32)],
-        grid_spec=grid_spec,
-        interpret=interpret,
-    )(rmax_tile, run_row, tab, rstart, rend, rscore, ract,
-      rc_rows[:, None])
-    return score, first
+def run_score_kernel(bits, run_row, rstart, rend, rscore, ract, rc_rows,
+                     rmax_tile, *, sparams, interpret=False):
+    """Dense per-template state loop on the GPU.
 
-
-@functools.partial(jax.jit, static_argnames=("sparams", "interpret"))
-def run_score_pallas(memb, rstart, rend, rscore, ract, rc_rows, rmax_tile,
-                     *, sparams, interpret=False):
-    """Dense per-template state loop on the TPU (Pallas).
-
-    memb [G, R, W32] u32, rstart/rend/rscore/ract [G, R] i32,
-    rc_rows [G] i32, rmax_tile [G // GT] i32 (live-run bound per tile).
-    Returns (score [G, T] i32, first [G, T] i32)."""
-    k, mlen, M, MM, U, W1, T, GT = sparams
-    G, R, W32 = memb.shape
-    n_tiles = G // GT
+    bits [V, t_pad // 32] u32; run_row/rstart/rend/rscore/ract [G, R]
+    i32; rc_rows [G] i32; rmax_tile [G // GT] i32.  G must be a multiple
+    of GT and t_pad of TT.  Returns (score [G, t_pad], first [G, t_pad])
+    i32.  interpret=True runs the Pallas interpreter (tests on the CPU).
+    """
+    k, mlen, M, MM, U, W1 = sparams
+    G = run_row.shape[0]
+    t_pad = bits.shape[1] * 32
     kern = functools.partial(_run_loop_kernel, k=k, mlen=mlen, M=M, MM=MM,
-                             U=U, W1=W1, T=T, GT=GT, W32=W32)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(n_tiles,),
-        in_specs=[
-            pl.BlockSpec((GT, R, W32), lambda i, *_: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, R), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, R), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, R), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, R), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, 1), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((GT, T), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((GT, T), lambda i, *_: (i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=[pltpu.VMEM((GT, T), jnp.int32)],
-    )
-    score, first = pl.pallas_call(
+                             U=U, W1=W1)
+    out_spec = pl.BlockSpec((GT, TT), lambda i, j: (i, j))
+    return pl.pallas_call(
         kern,
-        out_shape=[jax.ShapeDtypeStruct((G, T), jnp.int32),
-                   jax.ShapeDtypeStruct((G, T), jnp.int32)],
-        grid_spec=grid_spec,
+        out_shape=[jax.ShapeDtypeStruct((G, t_pad), jnp.int32),
+                   jax.ShapeDtypeStruct((G, t_pad), jnp.int32)],
+        grid=(G // GT, t_pad // TT),
+        in_specs=[pl.no_block_spec] * 8,
+        out_specs=[out_spec, out_spec],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=1),
         interpret=interpret,
-    )(rmax_tile, memb, rstart, rend, rscore, ract, rc_rows[:, None])
-    return score, first
-
-
-def pallas_enabled() -> bool:
-    """The Pallas scan kernel runs on real TPU backends; tests force it
-    through interpret mode explicitly."""
-    if os.environ.get("KMA_TPU_NO_PALLAS"):
-        return False
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # pragma: no cover
-        return False
+        name="kma_run_score",
+    )(rmax_tile, run_row, rstart, rend, rscore, ract, rc_rows, bits)

@@ -186,6 +186,29 @@ def _merge_ragged(flats: List[np.ndarray], offs: List[np.ndarray],
     return np.ascontiguousarray(flat[base + rel]), noff
 
 
+def _local_card(process_id: int) -> Optional[List[int]]:
+    """The one GPU this process may use: several -mh processes on one
+    machine must not each claim every card (a JAX process reserves most
+    of a card's memory).  Process pid takes card pid modulo the cards the
+    machine has; None (all visible devices) on the CPU backend or when
+    CUDA_VISIBLE_DEVICES already chose."""
+    import os
+    if os.environ.get("CUDA_VISIBLE_DEVICES") is not None \
+            or os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):
+        return None
+    try:
+        n_cards = len(os.listdir("/proc/driver/nvidia/gpus"))
+    except OSError:
+        import subprocess
+        try:
+            n_cards = len(subprocess.run(
+                ["nvidia-smi", "--list-gpus"], capture_output=True,
+                text=True, timeout=30).stdout.split("\n")) - 1
+        except (OSError, subprocess.SubprocessError):
+            return None
+    return [process_id % n_cards] if n_cards > 0 else None
+
+
 def run_kma_multihost(db_prefix: str, output_prefix: str,
                       input_files: List[str], cfg, exe_cmd: str,
                       coordinator: str, num_processes: int,
@@ -201,7 +224,8 @@ def run_kma_multihost(db_prefix: str, output_prefix: str,
     _ti = _time.time()
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=_local_card(process_id))
     _tm = _time.time()
 
     # local shard: scan + align my fragments

@@ -1168,30 +1168,41 @@ def aln_frags_force_pe(store: TemplateStore, matched: np.ndarray,
 
 
 def _device_enabled(cfg: MapConfig, input_bytes: int = 0) -> bool:
-    """Whether the TPU step-2 scanner should be used (MapConfig.device).
+    """Whether the device step-2 scanner should be used (MapConfig.device).
 
-    "auto" turns the device path on only when jax has a real accelerator
-    backend AND the input is large enough that steady-state device
-    throughput beats the per-run setup cost (backend init, index upload,
-    per-batch transfers).  Small one-shot CLI runs stay on the fused
-    native host path, which wins below ~10^6 reads; the crossover is
-    tunable via KMA_TPU_DEVICE_AUTO_MB (default 256).  Tests and
-    benchmarks force "on"."""
+    "auto" turns the device path on only on a GPU backend and for inputs
+    of at least KMA_TPU_DEVICE_AUTO_MB (default 256): backend start-up,
+    index upload and compilation are paid once per process.  "on" always
+    uses the device and fails rather than fall back to the host."""
     if cfg.device == "off":
         return False
     if cfg.device == "on":
         return True
-    try:
-        thresh_mb = int(os.environ.get("KMA_TPU_DEVICE_AUTO_MB", "256"))
-    except ValueError:
-        thresh_mb = 256
+    thresh_mb = int(os.environ.get("KMA_TPU_DEVICE_AUTO_MB", "256"))
     if input_bytes < thresh_mb * (1 << 20):
         return False
-    try:
-        import jax
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
+    from .devserve import live_daemons
+    if live_daemons():
+        # a daemon holds the card: asking jax here would start a second
+        # backend on it
+        return True
+    import jax
+    return jax.default_backend() == "gpu"
+
+
+def _device_unsupported(cfg: MapConfig, what: str, err: Exception) -> None:
+    """A database the device path cannot take: ``-device on`` ends the
+    run with the reason; ``-device auto`` says so once and keeps the
+    host scanner."""
+    if cfg.device == "on":
+        raise DeviceError("-device on: %s cannot run on the device: %s"
+                          % (what, err))
+    print("# device: %s stays on the host (%s)" % (what, err),
+          file=sys.stderr)
+
+
+class DeviceError(RuntimeError):
+    """A ``-device on`` run whose device work failed or cannot start."""
 
 
 def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
@@ -1510,7 +1521,7 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
         from .utils.qc import QCStat
         qc = QCStat(cfg.qc_report - 1)
 
-    # Device (TPU) step-2 path: the plain -1t1 SE scan batches through the
+    # Device step-2 path: the plain -1t1 SE scan batches through the
     # dense device scanner (mapping/scan_dense.py); every other mode keeps
     # the host scanner.  Parity is enforced by tests/test_dense_scan.py and
     # the device e2e test.
@@ -1527,10 +1538,17 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
     # lookups without any in-process jax/backend setup
     _dev_client = None
     if _device_enabled(cfg, _in_bytes):
-        from .devserve import DevClient
+        from .devserve import DevClient, live_daemons
         _dev_client = DevClient.connect(db_prefix)
         if _dev_client is not None:
             print("# device: using devserve session", file=sys.stderr)
+        elif live_daemons():
+            # one process per card: a daemon already holds the device
+            raise DeviceError(
+                "a devserve daemon holds the device (%s) but does not "
+                "serve %s; stop it (kma devserve -t_db DB -stop) or map "
+                "against its database" % (", ".join(live_daemons()),
+                                          db_prefix))
     if (cfg.one2one and not sparse_db and not cfg.ck
             and not (scan_proxi and scan_proxi.soft is not None)
             and _device_enabled(cfg, _in_bytes)):
@@ -1549,7 +1567,8 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
                     idx, pen, exhaustive=cfg.exhaustive,
                     proxi_frac=scan_proxi.min_frac if scan_proxi else None,
                     host=scanner)
-            except NotImplementedError:
+            except NotImplementedError as err:
+                _device_unsupported(cfg, "the -1t1 scan", err)
                 device_stream = None
 
     # Batched step-3: buffer step-2 ankers and align them through the
@@ -1563,11 +1582,12 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
         _nat.get_lib().kaln_set_circular(1 if cfg.circular else 0)
 
     # device step-3 pre-pass: heavy lead/trail banded windows scored by
-    # the Pallas wavefront kernel (align/nw_device.py; nw.c:892 role)
+    # the banded-NW scorer (align/nw_device.py; nw.c:892 role)
     _nw_dev = None
     if use_batch and _device_enabled(cfg, _in_bytes):
         from .align.nw_device import make_nw_prepass
-        _nw_dev = make_nw_prepass(_dev_client)
+        _nw_dev = make_nw_prepass(_dev_client,
+                                  strict=cfg.device == "on")
     pend: List[tuple] = []
     pord: List[int] = []
 
@@ -1839,7 +1859,7 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
 
             chain_dev = None
             if nchain_b is not None and _device_enabled(cfg, _in_bytes):
-                # device chain scanner: TPU hash probes feed the native
+                # device chain scanner: device hash probes feed the native
                 # chain splicer (mapping/chain_device.py)
                 try:
                     from .mapping.chain_device import DeviceChainStream
@@ -1852,7 +1872,8 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
                         chain_dev = DeviceChainStream(idx, pen,
                                                       template_lengths,
                                                       nchain_b)
-                except NotImplementedError:
+                except NotImplementedError as err:
+                    _device_unsupported(cfg, "the chain scan", err)
                     chain_dev = None
             if chain_dev is not None:
                 for read, hits in chain_dev.stream(
@@ -2169,6 +2190,14 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
             out["records"] = records
             out["rec_ords"] = rec_ords
         return out
+    if device_stream is not None or _nw_dev is not None:
+        # what the device did in this run (read by chip_smoke.py)
+        print("# device counters: scan_batches=%d nw_windows=%d "
+              "nw_dispatches=%d"
+              % (device_stream.batches if device_stream is not None else 0,
+                 _nw_dev.windows_scored if _nw_dev is not None else 0,
+                 _nw_dev.dispatches if _nw_dev is not None else 0),
+              file=sys.stderr)
     # stage lines in the reference's kmaPipe order; -status switches to
     # the forked-pipe TIMED variants (kmers.c:267/269, runkma.c:554-560)
     _map_dt = time.process_time() - _t_stage
@@ -2435,14 +2464,13 @@ def _conclave_and_output(records, db_size, template_lengths, name_of, store,
     trailing-count fragmentCount quirk.
     """
     _t_sort = time.process_time()
-    # --- device pileup (assembly.c:1446-1497 on the chip) ----------------
+    # --- device pileup (assembly.c:1446-1497 on the device) --------------
     # Dense assembly's count scatter rides the devserve session when one
     # is live: the native frag loop exports the accepted aligned rows
     # and the daemon's pileup op returns the delta matrix
     # (ops/pileup.pileup_delta semantics, bit-equal to alnToMatDense).
     _dev_pileup = None
-    if (cfg.dense and _device_enabled(cfg)
-            and os.environ.get("KMA_TPU_PILEUP", "auto") != "off"):
+    if cfg.dense and _device_enabled(cfg):
         from .devserve import DevClient as _DPC
         _pcli = _DPC.connect(db_prefix)
         if _pcli is not None:
@@ -3399,13 +3427,14 @@ def run_kma_mt1(db_prefix: str, output_prefix: str, input_files: List[str],
 
 
 
-# device pileup engages per template only when its aligned rows carry
-# enough work to amortize one daemon round trip (the deep-consensus
-# case alnToMatDense exists for); below this the host scatter is faster
-# than the link latency.  KMA_TPU_PILEUP=force drops the floor to 0.
-_PILEUP_MIN_BYTES = (0 if os.environ.get("KMA_TPU_PILEUP") == "force"
-                     else int(os.environ.get("KMA_TPU_PILEUP_MIN_KB",
-                                             "256")) << 10)
+def _pileup_floor(cfg: MapConfig) -> int:
+    """Aligned bytes a template needs before its pileup goes to the
+    device: every template under ``-device on``; under ``-device auto``
+    only deep ones (KMA_TPU_PILEUP_MIN_KB, default 256), which amortize
+    a daemon round trip."""
+    if cfg.device == "on":
+        return 0
+    return int(os.environ.get("KMA_TPU_PILEUP_MIN_KB", "256")) << 10
 
 
 def _apply_dev_pileup(dev_pileup, bufs, matrix, t_len):
@@ -3468,7 +3497,7 @@ def assemble_template(tindex: TemplateIndex, t_len: int, frags: List[Frag],
         matrix.ensure(matrix.len + len(s_codes) + 1)
         _pb = None
         if dev_pileup is not None and cfg.dense \
-                and len(s_codes) >= _PILEUP_MIN_BYTES:
+                and len(s_codes) >= _pileup_floor(cfg):
             _pb = _nat.arm_pileup_export(
                 n, 2 * len(s_codes) + t_len + 4096)
         new_len, acc, rcu, rs, ms, stt, enn, lnn = \
@@ -3540,7 +3569,7 @@ def assemble_template(tindex: TemplateIndex, t_len: int, frags: List[Frag],
         matrix.ensure(matrix.len + total_q + 1)
         _pb = None
         if dev_pileup is not None and cfg.dense \
-                and total_q >= _PILEUP_MIN_BYTES:
+                and total_q >= _pileup_floor(cfg):
             _pb = _nat.arm_pileup_export(
                 n, 2 * total_q + t_len + 4096)
         new_len, acc, rcu, rs, ms, stt, enn, lnn = \

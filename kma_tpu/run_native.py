@@ -318,7 +318,7 @@ class RunDriver:
         ``dev_pileup(t_flat, q_flat, offs, starts, t_len) -> delta``
         puts the DENSE matrix scatter on the device: the native frag
         loop exports accepted rows instead of scattering them
-        (kassem_set_pileup_export), the callable runs the chip-side
+        (kassem_set_pileup_export), the callable runs the device-side
         pileup, and the delta merges into the matrix here.  Overflow
         rows are host-scattered by the native loop, so the result is
         complete either way."""
@@ -333,9 +333,9 @@ class RunDriver:
         rows = np.empty(cap, np.uint8)
         out = np.empty(4, np.int64)
         nm = np.frombuffer(name, np.uint8)
-        from .pipeline import _PILEUP_MIN_BYTES
+        from .pipeline import _pileup_floor
         if dev_pileup is not None and cfg.dense \
-                and cb >= _PILEUP_MIN_BYTES:
+                and cb >= _pileup_floor(cfg):
             pcap = 2 * cb + t_len + 4096
             p_t = np.empty(pcap, np.uint8)
             p_q = np.empty(pcap, np.uint8)

@@ -39,7 +39,7 @@ static std::atomic<ll> g_p_collect(0), g_p_chain(0), g_p_tails(0),
     g_p_tfull_cells(0), g_p_tband_cells(0);
 
 // Device pre-pass score tables (per GLOBAL candidate = tpl_off[r]+ci),
-// produced by the Pallas banded-NW kernel over the windows exported by
+// produced by the device banded-NW scorer over the windows exported by
 // kaln_se_windows.  Set immediately before ONE kaln_frags_se_batch*
 // call and cleared by it; read-only while the batch workers run.
 // -ca circular templates: the batched scorers' chainSeeds variant
@@ -2137,7 +2137,7 @@ static void nw_score_chain(TIndex& T, const uint8_t* q, int q_len,
 // Lead/trail window geometry (lead_tail_aln / trail_tail_aln rules):
 // shared by the bound math, the exact pre-pass, and the device window
 // export (kaln_se_windows).  use_band marks the banded-NW branch -- the
-// shape the Pallas wavefront kernel (ops/nw_kernel.py) covers.
+// shape the device wavefront scorer (ops/nw_kernel.py) covers.
 struct WinGeom {
     int t_s, t_e, q_s, q_e, kf, band;
     bool use_band;
@@ -2794,7 +2794,7 @@ extern "C" void kaln_frags_se_batch_mf(
                         ll exact;
                         if (dev_l || dev_t) {
                             // device-scored lead/trail windows (the
-                            // Pallas wavefront kernel): same numeric
+                            // device wavefront scorer): same numeric
                             // path, heavy windows off the host
                             if (prof) g_p_pre_dev += 1;
                             ll lead = dev_l
@@ -2988,7 +2988,7 @@ extern "C" void kaln_frags_se_batch_mf(
 }
 
 // Export the heavy lead/trail banded windows of one SE batch for the
-// device pre-pass (the Pallas wavefront kernel, ops/nw_kernel.py): runs
+// device pre-pass (the wavefront scorer, ops/nw_kernel.py): runs
 // phase A (stage_read_chains) per read, applies the same static gates
 // phase B applies unconditionally, dedupes windows by CONTENT (the
 // redundant-DB workload makes most candidates alleles with identical
@@ -3153,94 +3153,12 @@ extern "C" ll kaln_se_windows(
     return n_win;
 }
 
-// Fill the Pallas kernel's staged inputs for a batch of exported
-// windows (ops/nw_kernel.py stage_band_inputs geometry, nw.c:958-1035):
-// msc[i, j, n] = d[t_nuc(m)][q(qpos(n))] over WINDOW-LOCAL coordinates;
-// rows beyond a window's t-span stay zero (the kernel's fori guard
-// skips them).  sel selects which windows land in this [R, n_sel, L]
-// dispatch (the caller buckets by t-span).
-extern "C" void kaln_se_stage_msc(
-    void* const* handles, const uint8_t* codes_flat,
-    const int64_t* codes_off, const uint8_t* crc_flat,
-    const int64_t* crc_off, const int32_t* dmat, const int32_t* w_read,
-    const int32_t* w_cand, const uint8_t* w_rc, const int32_t* w_ts,
-    const int32_t* w_te, const int32_t* w_qs, const int32_t* w_qe,
-    const int32_t* w_kf, const int32_t* w_band, const int64_t* sel,
-    ll n_sel, int R, int L, int8_t* msc, int32_t* tl_out, int32_t* ql_out,
-    int32_t* kf_out, int32_t* hb_out) {
-    int8_t d[5][5];
-    for (int a = 0; a < 5; a++)
-        for (int b = 0; b < 5; b++)
-            d[a][b] = (int8_t)dmat[a * 5 + b];
-    memset(msc, 0, (size_t)R * n_sel * L);
-    std::vector<uint8_t> rcq;
-    for (ll j = 0; j < n_sel; j++) {
-        ll wi = sel[j];
-        int r = w_read[wi];
-        const uint8_t* q_fw = codes_flat + codes_off[r];
-        int q_len_full = (int)(codes_off[r + 1] - codes_off[r]);
-        const uint8_t* q_used = q_fw;
-        if (w_rc[wi]) {
-            if (crc_flat && crc_off[r + 1] > crc_off[r]) {
-                q_used = crc_flat + crc_off[r];
-            } else {
-                rcq.resize(q_len_full);
-                for (int i = 0; i < q_len_full; i++) {
-                    uint8_t c = q_fw[q_len_full - 1 - i];
-                    rcq[i] = c < 4 ? (uint8_t)(3 - c) : c;
-                }
-                q_used = rcq.data();
-            }
-        }
-        TIndex& T = *(TIndex*)handles[w_cand[wi]];
-        const uint8_t* tw = T.codes.data() + w_ts[wi];
-        const uint8_t* qw = q_used + w_qs[wi];
-        int t_len = w_te[wi] - w_ts[wi];
-        int q_len = w_qe[wi] - w_qs[wi];
-        int band = w_band[wi];
-        band += band & 1;
-        int half = band / 2;
-        int bq_len = band + 1;
-        tl_out[j] = t_len;
-        ql_out[j] = q_len;
-        kf_out[j] = w_kf[wi];
-        hb_out[j] = half;
-        int c0 = (t_len + q_len) >> 1;
-        int en = 0;
-        for (int i = 0; i < t_len && i < R; i++) {
-            int m = t_len - 1 - i;
-            int c_pos = c0 - i;
-            int sq = c_pos + half;
-            en = (c_pos - half) < 0 ? en + 1 : 0;
-            int eq = c_pos - half > 0 ? c_pos - half : 0;
-            int sn_eff, sq_eff;
-            if (sq < q_len - 1) {
-                sn_eff = bq_len - 1;
-                sq_eff = sq;
-            } else {
-                sq_eff = q_len - 1;
-                sn_eff = en + (q_len - eq) - 1;
-            }
-            int8_t* row = msc + ((size_t)i * n_sel + j) * L;
-            int8_t drow[5];
-            for (int x = 0; x < 5; x++)
-                drow[x] = d[tw[m]][x];
-            for (int n = en; n <= sn_eff && n < L; n++) {
-                int qpos = sq_eff - (sn_eff - n);
-                if (qpos >= 0 && qpos < q_len)
-                    row[n] = drow[qw[qpos]];
-            }
-        }
-    }
-}
-
-// Slim staging for the CODES-fed device kernel
-// (ops/nw_kernel.py nw_band_score_codes_pallas): the sheared band's
-// query position collapses to qpos(n) = K + n - i with
-// K = max(c0 - half, -1), so the device needs only the row-(-1) query
-// window (qc0, one code per lane), the per-row template code (tcol)
-// and the per-row entering query code (inj) -- ~2 bytes/row instead of
-// the msc slab's L bytes/row.  Code 5 = out-of-range pad (score 0).
+// Code staging for the device NW scorer (ops/nw_kernel.py
+// nw_band_score): the sheared band's query position collapses to
+// qpos(n) = K + n - i with K = max(c0 - half, -1), so the device needs
+// only the row-(-1) query window (qc0, one code per lane), the per-row
+// template code (tcol) and the per-row entering query code (inj).
+// Code 5 = out-of-range pad (score 0).
 extern "C" void kaln_se_stage_codes(
     void* const* handles, const uint8_t* codes_flat,
     const int64_t* codes_off, const uint8_t* crc_flat,

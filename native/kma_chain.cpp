@@ -324,7 +324,7 @@ bool quick_hit_voff(int k, const uint8_t *s, int seqlen,
 
 // _collect_ankers (savekmers.c:5221-5450): one strand, fw coordinates.
 // voff != nullptr supplies precomputed per-window values offsets (the
-// device chain scanner's TPU hash-lookup output); nullptr = native
+// device chain scanner's hash-lookup output); nullptr = native
 // lookups.
 // reference-shaped single-strand scan (savekmers.c:5221-5454) for plain
 // k-mer DBs.  Segments come from the FORWARD N positions on BOTH strands
@@ -1741,7 +1741,7 @@ int kchain_scan_batch(void *h, const uint8_t *codes_flat,
     return n_reads;
 }
 
-// Device-fed batch (the TPU chain scanner's host half): voff_f/voff_r
+// Device-fed batch (the device chain scanner's host half): voff_f/voff_r
 // are [n_reads, stride] row-major per-window values offsets computed by
 // the device hash lookup (mapping/chain_device.py); row r's valid
 // entries span [0, len_r - k + 1).  Everything else as kchain_scan_batch.

@@ -21,12 +21,11 @@
 namespace {
 
 // Deadlines: a wedged daemon must cost a bounded slice of wall time,
-// after which the callers' existing "devserve lost; host scan takes
-// over" paths fire (VERDICT r4: a -device on run once hung 25 minutes
-// against a wedged daemon; the host run takes ~0.4s).  The hello
-// handshake gets a short deadline (a healthy daemon answers in
-// milliseconds); scan requests get a longer one that still bounds the
-// worst case (one cold compile of an unwarmed shape via the tunnel).
+// after which the caller ends the run with the cause (a -device on run
+// does not fall back to the host).  The hello handshake gets a short
+// deadline (a healthy daemon answers in milliseconds); scan requests
+// get a longer one that still bounds the worst case (one cold compile
+// of an unwarmed shape).
 double env_secs(const char *name, double dflt) {
     const char *v = getenv(name);
     if (!v || !*v)
@@ -379,8 +378,7 @@ DevConn *kdev_connect(const char *db_prefix) {
         memcpy(c->voff_map.data(), vm->data(), vm->size());
     }
     // per-request deadline for the scan ops: bounds the damage of a
-    // wedged daemon; on expiry recv_all fails and the caller's host
-    // fallback takes over mid-run
+    // wedged daemon; on expiry recv_all fails and the caller ends the run
     set_deadline(fd, env_secs("KMA_DEVSERVE_CALL_TIMEOUT", 300));
     return c;
 }

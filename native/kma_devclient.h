@@ -1,5 +1,5 @@
 // Native client for the kma_tpu devserve daemon (kma_tpu/devserve.py):
-// the persistent TPU session holding the device-resident index and the
+// the persistent device session holding the device-resident index and the
 // compiled scan executables (the -shm analog, shm.c:51 role).  The CLI
 // driver ships step-2 read batches over the daemon's unix socket and
 // keeps the rest of the run native.

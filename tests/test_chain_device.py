@@ -1,8 +1,9 @@
-"""Device chain scanner (mapping/chain_device.py): the TPU hash-probe
+"""Device chain scanner (mapping/chain_device.py): the device hash-probe
 front-end must feed the native chainer the exact hit stream the host
 lookup produces, so DeviceChainStream == per-read NativeChain.scan.
 
-Runs on the CPU jax backend; the lookup jit is backend-agnostic."""
+Runs on the CPU jax backend against the seeded gene panel; the lookup
+jit is backend-agnostic."""
 
 import numpy as np
 import pytest
@@ -16,11 +17,8 @@ from kma_tpu.io.seq import rc_codes, valid_kmer_mask
 
 
 @pytest.fixture(scope="module")
-def db50_prefix(tmp_path_factory, db50):
-    from kma_tpu.index.build import build_index
-    prefix = str(tmp_path_factory.mktemp("chain_dev_db") / "my_db50")
-    build_index([str(db50)], prefix, quiet=True)
-    return prefix
+def db50_prefix(panel):
+    return panel["db"]
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +37,7 @@ def test_device_lookup_matches_host(db50i, db50_prefix):
     rng = np.random.default_rng(5)
     from kma_tpu.pipeline import TemplateStore
     store = TemplateStore(db50_prefix + ".seq.b", tl, k)
-    for tid in (3, 17, 40):
+    for tid in (3, 17, 22):
         t = store.get(tid).codes
         c = t[: 150].copy()
         c[rng.integers(0, len(c), 4)] = 4  # Ns

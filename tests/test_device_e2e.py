@@ -1,153 +1,98 @@
-"""Device (TPU-path) e2e parity: full -1t1 mapping run through the
-batched dense device scanner (`-device on`) must be byte-identical to the
-reference binary -- same bar as the host path (test_e2e.py).
+"""Device-path e2e parity on seeded gene-panel data: full mapping runs
+with ``-device on`` must be byte-identical to the ``-device off`` host
+run.  On the CPU test backend ``-device on`` runs the same device code
+through XLA's CPU backend (the plain kernel versions); on the GPU
+chip_smoke.py runs the same comparisons at real size."""
 
-On the CPU test backend `-device on` forces the jax scanner; on real TPU
-hardware the same code path is what bench.py measures.
-"""
-
-import gzip
+import os
 import subprocess
+import sys
 
+import numpy as np
 import pytest
 
 pytest.importorskip("jax")
 
-from kma_tpu.cli.main import main as kma_main
-
-from test_e2e import db50_index, sim_reads  # noqa: F401 (fixtures)
+from tests.conftest import REPO, run_pair
 
 
-def test_device_1t1_parity(tmp_path, sim_reads, db50_index, ref_bin):  # noqa: F811
-    ref_out = tmp_path / "ref"
-    my_out = tmp_path / "my"
-    r = subprocess.run([str(ref_bin), "-i", str(sim_reads), "-o",
-                        str(ref_out), "-t_db", db50_index, "-1t1"],
-                       capture_output=True)
-    assert r.returncode == 0
-    rc = kma_main(["-i", str(sim_reads), "-o", str(my_out), "-t_db",
-                   db50_index, "-1t1", "-device", "on"])
-    assert rc == 0
-    for ext in (".res", ".fsa", ".aln"):
-        a = (ref_out.parent / (ref_out.name + ext)).read_bytes()
-        b = (my_out.parent / (my_out.name + ext)).read_bytes()
-        assert a == b, f"{ext} differs"
-    a = gzip.open(str(ref_out) + ".frag.gz").read()
-    b = gzip.open(str(my_out) + ".frag.gz").read()
-    assert a == b, ".frag.gz content differs"
+def test_device_1t1_parity(tmp_path, panel):
+    err = run_pair(tmp_path, ["-i", panel["se"], "-t_db", panel["db"],
+                              "-1t1"])
+    assert "scan_batches=" in err and "scan_batches=0" not in err
 
 
-def test_device_1t1_parity_threaded(tmp_path, sim_reads, db50_index,  # noqa: F811
-                                    ref_bin):
+def test_device_1t1_parity_threaded(tmp_path, panel):
     """-t 4: the threaded native batch aligner must stay byte-identical
     (per-read output slots make worker scheduling invisible)."""
-    ref_out = tmp_path / "ref"
-    my_out = tmp_path / "my"
-    r = subprocess.run([str(ref_bin), "-i", str(sim_reads), "-o",
-                        str(ref_out), "-t_db", db50_index, "-1t1"],
-                       capture_output=True)
-    assert r.returncode == 0
-    rc = kma_main(["-i", str(sim_reads), "-o", str(my_out), "-t_db",
-                   db50_index, "-1t1", "-device", "on", "-t", "4"])
-    assert rc == 0
-    for ext in (".res", ".fsa", ".aln"):
-        a = (ref_out.parent / (ref_out.name + ext)).read_bytes()
-        b = (my_out.parent / (my_out.name + ext)).read_bytes()
-        assert a == b, f"{ext} differs"
+    run_pair(tmp_path, ["-i", panel["se"], "-t_db", panel["db"], "-1t1",
+                        "-t", "4"])
 
 
-def test_device_chain_mode_parity(tmp_path, sim_reads, db50_index,  # noqa: F811
-                                  ref_bin):
-    """Default (chain) mode through the device chain scanner
-    (mapping/chain_device.py): TPU hash probes + native splicing must be
-    byte-identical to the reference."""
-    ref_out = tmp_path / "ref"
-    my_out = tmp_path / "my"
-    r = subprocess.run([str(ref_bin), "-i", str(sim_reads), "-o",
-                        str(ref_out), "-t_db", db50_index],
-                       capture_output=True)
-    assert r.returncode == 0
-    rc = kma_main(["-i", str(sim_reads), "-o", str(my_out), "-t_db",
-                   db50_index, "-device", "on"])
-    assert rc == 0
-    for ext in (".res", ".fsa", ".aln"):
-        a = (ref_out.parent / (ref_out.name + ext)).read_bytes()
-        b = (my_out.parent / (my_out.name + ext)).read_bytes()
-        assert a == b, f"{ext} differs"
-    a = gzip.open(str(ref_out) + ".frag.gz").read()
-    b = gzip.open(str(my_out) + ".frag.gz").read()
-    assert a == b, ".frag.gz content differs"
+def test_device_chain_mode_parity(tmp_path, panel):
+    """Default (chain) mode with the device on."""
+    run_pair(tmp_path, ["-i", panel["se"], "-t_db", panel["db"]])
 
 
-def test_device_chain_long_reads(tmp_path, db50, db50_index, ref_bin):  # noqa: F811
-    """10kb+ Nanopore-scale reads through the device chain scanner: the
-    length-bucketed dispatch has no read-length ceiling (VERDICT: lift
-    the device scan's long-read limit)."""
-    import numpy as np
-    from kma_tpu.io.seq import parse_fasta
-    rng = np.random.default_rng(77)
-    recs = [c for _h, c in parse_fasta(str(db50))]
-    comp = np.array([3, 2, 1, 0, 4, 5], dtype=np.uint8)
-    fq = tmp_path / "long.fq"
-    with open(fq, "w") as f:
-        for i in range(16):
-            parts = []
-            tot = 0
-            target = int(rng.integers(5000, 14000))
-            while tot < target:
-                c = recs[rng.integers(len(recs))]
-                seg = c.copy()
-                ne = rng.binomial(len(seg), 0.03)
-                pp = rng.integers(0, len(seg), ne)
-                seg[pp] = (seg[pp] + rng.integers(1, 4, ne)) % 4
-                if rng.random() < 0.5:
-                    seg = comp[seg[::-1]]
-                parts.append(seg)
-                tot += len(seg)
-            r = np.concatenate(parts)
-            f.write("@L%d\n%s\n+\n%s\n"
-                    % (i, "".join("ACGTN"[c] for c in r), "I" * len(r)))
-    ref_out = tmp_path / "ref"
-    my_out = tmp_path / "my"
-    subprocess.run([str(ref_bin), "-i", str(fq), "-o", str(ref_out),
-                    "-t_db", db50_index, "-bcNano", "-bc", "0.7"],
-                   capture_output=True, check=True)
-    rc = kma_main(["-i", str(fq), "-o", str(my_out), "-t_db", db50_index,
-                   "-bcNano", "-bc", "0.7", "-device", "on"])
-    assert rc == 0
-    for ext in (".res", ".fsa", ".aln"):
-        a = (ref_out.parent / (ref_out.name + ext)).read_bytes()
-        b = (my_out.parent / (my_out.name + ext)).read_bytes()
-        assert a == b, f"{ext} differs"
+def test_device_chain_long_reads(tmp_path, panel):
+    """Nanopore-length reads (-bcNano -bc 0.7): no read-length ceiling."""
+    run_pair(tmp_path, ["-i", panel["ont"], "-t_db", panel["db"],
+                        "-bcNano", "-bc", "0.7"])
 
 
-def test_big_db_falls_to_pair_stream(db50_index, monkeypatch):
-    """A DB past the dense-membership budget silently used the HOST
-    scanner before; now the stream wires the pair-stream FastScanner
-    (scan_fast.py) as the device path (kmers.c:84-125 scale story)."""
-    import numpy as np
+def test_device_nw_prepass_mosaic(tmp_path, panel):
+    """Mosaic-allele reads engage the step-3 NW pre-pass on the device
+    under -device on, byte-identical to the host pre-pass."""
+    err = run_pair(tmp_path, ["-i", panel["mosaic"], "-t_db", panel["db"],
+                              "-1t1"])
+    assert "nw_windows=0" not in err and "nw_windows=" in err
+
+
+def test_device_on_refuses_unsupported_db(tmp_path, panel):
+    """-device on against a database the device scanner cannot take (a
+    minimizer index) ends the run non-zero with the reason; -device
+    auto keeps the host scan."""
+    db = str(tmp_path / "mdb")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    subprocess.run([sys.executable, "-m", "kma_tpu", "index", "-i",
+                    panel["fasta"], "-o", db, "-m", "14"], check=True,
+                   capture_output=True, env=env)
+    base = [sys.executable, "-m", "kma_tpu", "-i", panel["se"], "-t_db",
+            db, "-1t1", "-o", str(tmp_path / "o")]
+    r = subprocess.run(base + ["-device", "on"], capture_output=True,
+                       env=env)
+    assert r.returncode != 0
+    assert b"cannot run on the device" in r.stderr
+    r = subprocess.run(base + ["-device", "auto"], capture_output=True,
+                       env=dict(env, KMA_TPU_DEVICE_AUTO_MB="0"))
+    assert r.returncode == 0, r.stderr.decode()[-2000:]
+
+
+def test_big_db_falls_to_pair_stream(panel, monkeypatch):
+    """A DB past the dense-membership budget takes the pair-stream
+    FastScanner (scan_fast.py) as the device path (kmers.c:84-125 scale
+    story), with host-exact results."""
     from kma_tpu.config import Penalties
-    from kma_tpu.index.format import load_index
+    from kma_tpu.index.format import load_index, seq_offsets
     from kma_tpu.io.pipeline import Read
+    from kma_tpu.io.seq import unpack_2bit
     from kma_tpu.mapping.scan import SaveKmersScanner
     from kma_tpu.mapping.scan_fast import FastScanner
     from kma_tpu.mapping.scan_stream import DeviceScanStream
 
     monkeypatch.setenv("KMA_TPU_DENSE_BUDGET_MB", "0")
-    idx = load_index(db50_index)
+    db = panel["db"]
+    idx = load_index(db)
     pen = Penalties()
     pen.score_matrix()
     host = SaveKmersScanner(idx, pen)
     stream = DeviceScanStream(idx, pen, batch=32, host=host)
     assert isinstance(stream.dense, FastScanner)
 
-    # parity through the stream on a few template-derived reads
-    from kma_tpu.io.seq import unpack_2bit
-    from kma_tpu.index.format import seq_offsets
     lens = idx.template_lengths
     offs = seq_offsets(lens)
     reads = []
-    with open(db50_index + ".seq.b", "rb") as f:
+    with open(db + ".seq.b", "rb") as f:
         for t in range(1, 6):
             f.seek(int(offs[t]))
             words = np.fromfile(f, dtype="<u8",

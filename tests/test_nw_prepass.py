@@ -1,14 +1,13 @@
-"""Device step-3 pre-pass (align/nw_device.py): forced on, byte parity.
+"""Device step-3 pre-pass (align/nw_device.py): -device on, byte parity.
 
 The batched step-3 scorer exports heavy lead/trail banded windows and
-feeds Pallas-kernel scores into phase B's skip rules (kma_align.cpp
+feeds device NW scores into phase B's skip rules (kma_align.cpp
 kaln_se_windows / kaln_set_dev_scores).  The skip rules are
-output-neutral, so a run with the device pre-pass forced on must be
-byte-identical to the host run; the interpret-mode kernel makes this
-exercisable on the CPU mesh.
+output-neutral, so a -device on run, which scores every exported window
+on the device, must be byte-identical to the host run; on the CPU the
+plain jax.numpy scorer stands in for the GPU kernel.
 """
 
-import os
 from pathlib import Path
 
 import numpy as np
@@ -61,22 +60,14 @@ def test_forced_device_prepass_parity(prepass_db, tmp_path):
     prefix, reads = prepass_db
     out_host = str(tmp_path / "host")
     out_dev = str(tmp_path / "dev")
-    env0 = dict(os.environ)
-    try:
-        os.environ["KMA_TPU_NW"] = "off"
-        assert main(["-i", reads, "-t_db", prefix, "-o", out_host,
-                     "-1t1", "-device", "off"]) in (0, None)
-        os.environ["KMA_TPU_NW"] = "force"
-        os.environ["KMA_TPU_PALLAS"] = "interpret"
-        from kma_tpu.align import nw_device
-        nw_device.LAST_STATS["windows"] = 0
-        assert main(["-i", reads, "-t_db", prefix, "-o", out_dev,
-                     "-1t1", "-device", "on"]) in (0, None)
-        assert nw_device.LAST_STATS["windows"] > 0, \
-            "device pre-pass never engaged"
-    finally:
-        os.environ.clear()
-        os.environ.update(env0)
+    assert main(["-i", reads, "-t_db", prefix, "-o", out_host,
+                 "-1t1", "-device", "off"]) in (0, None)
+    from kma_tpu.align import nw_device
+    nw_device.LAST_STATS["windows"] = 0
+    assert main(["-i", reads, "-t_db", prefix, "-o", out_dev,
+                 "-1t1", "-device", "on"]) in (0, None)
+    assert nw_device.LAST_STATS["windows"] > 0, \
+        "device pre-pass never engaged"
     for ext in (".res", ".fsa", ".aln"):
         a = Path(out_host + ext).read_bytes()
         b = Path(out_dev + ext).read_bytes()

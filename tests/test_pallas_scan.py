@@ -1,9 +1,8 @@
-"""Pallas run-scoring kernel parity (ops/scan_kernel.py, interpret mode).
+"""Run-scoring kernel parity (ops/scan_kernel.py, Pallas interpret mode).
 
-The fused VMEM-resident run loop must produce the same scan results as
-both the XLA chunked loop and the host-exact scanner."""
-
-import os
+The kernel, which keeps each tile's state in registers through the whole
+run loop, must produce the same scan results as both the plain XLA
+chunked loop and the host-exact scanner."""
 
 import numpy as np
 import pytest
@@ -18,7 +17,7 @@ from test_dense_scan import tiny_db, read_batch, _host_expect  # noqa: F401
 def _mk_scanner(idx, pen, mode, batch):
     from kma_tpu.mapping.scan_dense import DenseScanner
     sc = DenseScanner(idx, pen, batch=batch)
-    sc.pallas_mode = mode
+    sc.kernel_mode = mode
     return sc
 
 
@@ -48,3 +47,19 @@ def test_pallas_matches_xla_and_host(tiny_db, read_batch):  # noqa: F811
             continue
         assert scores[i] == exp.rc_flag, f"read {i} score"
         assert tid_lists[i].tolist() == exp.templates.tolist(), f"read {i}"
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla(gpu, tiny_db, read_batch):  # noqa: F811
+    """The Triton-compiled kernel equals the plain XLA loop on the card."""
+    idx, _ = tiny_db
+    codes, lengths = read_batch
+    pen = Penalties()
+    pen.score_matrix()
+    sk = _mk_scanner(idx, pen, "compiled", 32).scan_reads(codes, lengths)
+    sx = _mk_scanner(idx, pen, None, 32).scan_reads(codes, lengths)
+    assert sk[0].tolist() == sx[0].tolist()
+    assert sk[1].tolist() == sx[1].tolist()
+    for a, b in zip(sk[2], sx[2]):
+        assert (a is None) == (b is None)
+        assert a is None or a.tolist() == b.tolist()
