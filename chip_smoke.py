@@ -11,18 +11,22 @@ Phases (one card):
   1. kernels: the run-scoring scan kernel and the banded-NW kernel at
      real widths against their plain jax.numpy versions and the host
      oracles (exact equality), each timed against its plain version;
-  2. in-process device runs (no daemon): bin/kma -1t1 -device on against
-     -device off on the SE reads and on the mosaic-allele reads, byte
-     for byte, with the device counters showing the scan and the NW
-     pre-pass ran on the card;
+  2. in-process device runs (no daemon): bin/kma -device on against
+     -device off, byte for byte, on the SE reads (-1t1) and on the
+     Nanopore reads (-bcNano -bc 0.7, per-component pipeline), with the
+     device counters showing the scan and the NW pre-pass ran on the
+     card;
   3. a devserve daemon session: SE -1t1, SE chain mode, PE and Nanopore
-     jobs through the native CLI with -device on, each against its
-     -device off run, and the daemon's per-op request counts.
+     jobs through the native CLI, and a Nanopore -dense job through
+     python -m kma_tpu, each with -device on against its -device off
+     run, and the daemon's per-op request counts (dense, chain, nw,
+     pileup).
 
 With --four-cards: the sharded dense scan, chain probes, ConClave, the
 NW scorer under shard_map and the pileup psum on a mesh over the four
-cards (__graft_entry__.dryrun_multichip), and a four-process -mh run
-(one card each) against the one-process run.
+cards (__graft_entry__.dryrun_multichip on the generated panel and a
+4,096-read batch of its SE reads per data shard), and a four-process
+-mh run (one card each) against the one-process run.
 
 The parent process never starts JAX: every device step runs in a child,
 one at a time, so one process holds a card.  The last line of stdout is
@@ -118,9 +122,9 @@ def setup(work: str, sizes, seed: int) -> dict:
     paths = simdata.generate(os.path.join(work, "data"), seed, sizes,
                              index=True)
     log("# set-up: native + CUDA build %.1f s, data + index %.1f s "
-        "(%d SE, %d PE pairs, %d ONT, %d mosaic reads; %d templates)"
+        "(%d SE, %d PE pairs, %d ONT reads; %d templates)"
         % (t_build, time.time() - t0 - t_build, sizes.se, sizes.pe,
-           sizes.ont, sizes.mosaic, sizes.templates))
+           sizes.ont, sizes.templates))
     return paths
 
 
@@ -152,6 +156,7 @@ def child_kernels(work: str) -> dict:
     from kma_tpu.mapping.scan_dense import (DenseScanner,
                                             dense_scan_device)
     from kma_tpu.ops import nw_kernel
+    from kma_tpu.utils.simdata import make_nw_windows
 
     assert jax.default_backend() == "gpu", jax.default_backend()
     data = os.path.join(work, "data")
@@ -214,24 +219,10 @@ def child_kernels(work: str) -> dict:
                    "plain_ms": _median_ms(scan_step(None))}
 
     # NW: 1024 windows, bands 64-128, rows up to the longest window
-    rng = np.random.default_rng(11)
     NB = 1024
-    ts, qs, tl, ql, ks, bands = [], [], [], [], [], []
-    for _ in range(NB):
-        band = int(rng.choice([64, 80, 100, 126, 128]))
-        tlen = int(rng.integers(64, 1024))
-        qlen = max(16, tlen + int(rng.integers(-band // 2, band // 2)))
-        t = rng.integers(0, 4, tlen).astype(np.uint8)
-        q = np.resize(t, qlen).copy()
-        ne = rng.binomial(qlen, 0.1)
-        pos = rng.integers(0, qlen, ne)
-        q[pos] = rng.integers(0, 5, ne)
-        ts.append(t)
-        qs.append(q)
-        tl.append(tlen)
-        ql.append(qlen)
-        ks.append(int(rng.choice([0, 1, -1, 2, -2])))
-        bands.append(band)
+    w = make_nw_windows(np.random.default_rng(11), NB)
+    ts, qs, tl, ql, ks, bands = (w[k] for k in ("t", "q", "tl", "ql", "kf",
+                                                "band"))
     d5 = pen.score_matrix()[:5, :5].astype(np.int64)
     DMAT = tuple(tuple(int(x) for x in row) for row in d5)
     tlv, qlv, hbv, qext, tcol = nw_kernel.stage_code_inputs(
@@ -263,8 +254,10 @@ def child_dryrun(work: str) -> dict:
     sys.path.insert(0, HERE)
     import __graft_entry__
     assert jax.default_backend() == "gpu" and len(jax.devices()) >= 4
-    __graft_entry__.dryrun_multichip(4)
-    return {"dryrun_multichip": 4}
+    data = os.path.join(work, "data")
+    return __graft_entry__.dryrun_multichip(
+        4, db_prefix=os.path.join(data, "panel"),
+        reads=os.path.join(data, "se.fq"), batch_per_shard=4096)
 
 
 # -- phases 2 and 3 -------------------------------------------------------------
@@ -291,15 +284,15 @@ def counters(err: str) -> dict:
     return out
 
 
-def pair(work: str, name: str, args, env) -> tuple:
+def pair(work: str, name: str, args, env, cmd=(KMA,)) -> tuple:
     """-device on and -device off runs of one job; returns (on stderr,
     on wall s, off wall s)."""
     on = os.path.join(work, name + "_on")
     off = os.path.join(work, name + "_off")
     t0 = time.time()
-    _, _, err = run([KMA, *args, "-o", on, "-device", "on"], env=env)
+    _, _, err = run([*cmd, *args, "-o", on, "-device", "on"], env=env)
     t1 = time.time()
-    run([KMA, *args, "-o", off, "-device", "off"], env=env)
+    run([*cmd, *args, "-o", off, "-device", "off"], env=env)
     t2 = time.time()
     same_outputs(on, off)
     return err, t1 - t0, t2 - t1
@@ -309,13 +302,17 @@ def phase2(work: str, paths: dict) -> dict:
     env = dict(os.environ, KMA_ALN_PROF="1")
     env["KMA_DEVSERVE_DIR"] = os.path.join(work, "no_daemon")
     res = {}
-    for name, reads, need in (("se_1t1", paths["se"], "scan_batches"),
-                              ("mosaic_1t1", paths["mosaic"], "nw_windows")):
-        err, t_on, t_off = pair(work, name, ["-i", reads, "-t_db",
-                                             paths["db"], "-1t1"], env)
+    # the Nanopore job runs the per-component pipeline, whose step 3
+    # exports heavy lead/trail windows to the device NW pre-pass
+    jobs = (("se_1t1", ["-i", paths["se"], "-1t1"], env,
+             ("scan_batches",)),
+            ("ont", ["-i", paths["ont"], "-bcNano", "-bc", "0.7"],
+             dict(env, KMA_TPU_NO_FUSED="1"), ("nw_windows", "predev")))
+    for name, args, job_env, need in jobs:
+        err, t_on, t_off = pair(work, name, args + ["-t_db", paths["db"]],
+                                job_env)
         c = counters(err)
-        if c["scan_batches"] <= 0 or c[need] <= 0 \
-                or (need == "nw_windows" and c["predev"] <= 0):
+        if any(c[k] <= 0 for k in need):
             raise SmokeError("%s: device counters show no device work: %s"
                              % (name, c))
         c.update(wall_on_s=round(t_on, 3), wall_off_s=round(t_off, 3))
@@ -339,23 +336,34 @@ def phase3(work: str, paths: dict) -> dict:
     log("# phase 3: daemon up in %.1f s (pid %s)" % (time.time() - t0, pid))
     res = {}
     try:
-        jobs = (("d_se_1t1", ["-i", paths["se"], "-1t1"], "dense"),
-                ("d_se_chain", ["-i", paths["se"]], "chain"),
-                ("d_pe", ["-ipe", paths["pe1"], paths["pe2"]], "chain"),
-                ("d_ont", ["-i", paths["ont"], "-bcNano", "-bc", "0.7"],
-                 "chain"))
-        for name, args, op in jobs:
+        ont = ["-i", paths["ont"], "-bcNano", "-bc", "0.7"]
+        # the native CLI scans through the daemon and keeps step 3 and
+        # assembly on the host; the Python pipeline also sends the NW
+        # pre-pass and the -dense pileup to the daemon
+        py = (sys.executable, "-m", "kma_tpu")
+        jobs = (("d_se_1t1", ["-i", paths["se"], "-1t1"], env, (KMA,),
+                 ("dense",)),
+                ("d_se_chain", ["-i", paths["se"]], env, (KMA,),
+                 ("chain",)),
+                ("d_pe", ["-ipe", paths["pe1"], paths["pe2"]], env, (KMA,),
+                 ("chain",)),
+                ("d_ont", ont, env, (KMA,), ("chain",)),
+                ("d_py_ont_dense", ont + ["-dense"],
+                 dict(env, KMA_TPU_NO_FUSED="1", PYTHONPATH=HERE), py,
+                 ("chain", "nw", "pileup")))
+        for name, args, job_env, cmd, ops in jobs:
             cli = DevClient.connect(db)
             before = cli.stats()
-            err, t_on, t_off = pair(work, name, args + ["-t_db", db], env)
+            err, t_on, t_off = pair(work, name, args + ["-t_db", db],
+                                    job_env, cmd)
             after = cli.stats()
             cli.close()
             if "# device: using devserve session" not in err:
                 raise SmokeError("%s did not attach to the daemon" % name)
             served = {k: after.get(k, 0) - before.get(k, 0) for k in after}
-            if served.get(op, 0) <= 0:
-                raise SmokeError("%s: daemon served no %s op (%s)"
-                                 % (name, op, served))
+            if any(served.get(op, 0) <= 0 for op in ops):
+                raise SmokeError("%s: daemon served none of some op in %s "
+                                 "(%s)" % (name, ops, served))
             res[name] = {"served": served, "wall_on_s": round(t_on, 3),
                          "wall_off_s": round(t_off, 3)}
             log("# phase 3 %s: outputs byte-equal; daemon served %s"
@@ -379,9 +387,19 @@ def _free_port() -> int:
     return port
 
 
-def four_cards(work: str, paths: dict) -> dict:
-    res = {"dryrun": child("dryrun", work, timeout=900)}
-    log("# four cards: sharded scan/chain/ConClave/NW/pileup bit-equal")
+def four_cards(work: str, paths: dict, templates: int) -> dict:
+    dry = child("dryrun", work, timeout=900)
+    if dry.get("templates") != templates or dry.get("pileup_frags", 0) <= 0 \
+            or dry.get("mesh") != [2, 2]:
+        raise SmokeError("dry run did not check the panel's sharded "
+                         "path: %s" % dry)
+    res = {"dryrun": dry}
+    log("# four cards: sharded dense scan (vs one card: %s), chain probes, "
+        "ConClave, NW (%d windows) under shard_map, pileup psum (%d "
+        "frags on template %d) bit-equal on a %s mesh, %d templates, "
+        "batch %d" % (dry["single_device_scan"], dry["nw_windows"],
+                      dry["pileup_frags"], dry["pileup_template"],
+                      dry["mesh"], dry["templates"], dry["batch"]))
     args = ["-i", paths["se"], "-t_db", paths["db"], "-1t1", "-device",
             "on"]
     env = dict(os.environ, KMA_DEVSERVE_DIR=os.path.join(work, "nd"),
@@ -459,12 +477,16 @@ def main(argv=None) -> int:
         os.makedirs(a.work)
         over = {k: v for k, v in (("se", a.se), ("pe", a.pe),
                                   ("ont", a.ont)) if v is not None}
+        if a.four_cards:
+            # the multi-device paths map SE reads only
+            over.update(pe=0, ont=0)
         sizes = dataclasses.replace(
             simdata.SMALL if a.small else simdata.Sizes(), **over)
         paths = setup(a.work, sizes, a.seed)
         report = {"sizes": dataclasses.asdict(sizes)}
         if a.four_cards:
-            report["four_cards"] = four_cards(a.work, paths)
+            report["four_cards"] = four_cards(a.work, paths,
+                                              sizes.templates)
         else:
             k = child("kernels", a.work)
             log("# phase 1 kernels on %s (median of 7 warm runs): scan "

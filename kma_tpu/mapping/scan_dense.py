@@ -58,12 +58,9 @@ def _round_up(x: int, m: int) -> int:
 def dense_budget_bytes() -> int:
     """Per-device budget for the dense membership image: an eighth of
     the memory the device reports (the [batch, DB] scan state and the
-    compiled programs take the rest).  KMA_TPU_DENSE_BUDGET_MB overrides
-    it; a device that reports no limit (the CPU) is budgeted from the
-    host's physical memory."""
+    compiled programs take the rest).  A device that reports no limit
+    (the CPU) is budgeted from the host's physical memory."""
     import os
-    if os.environ.get("KMA_TPU_DENSE_BUDGET_MB"):
-        return int(os.environ["KMA_TPU_DENSE_BUDGET_MB"]) << 20
     stats = jax.local_devices()[0].memory_stats() or {}
     limit = stats.get("bytes_limit")
     if not limit:

@@ -1537,21 +1537,26 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
     # connection per run serves the dense scan, chain probes and PE
     # lookups without any in-process jax/backend setup
     _dev_client = None
-    if _device_enabled(cfg, _in_bytes):
+    _use_dev = _device_enabled(cfg, _in_bytes)
+    if _use_dev:
         from .devserve import DevClient, live_daemons
         _dev_client = DevClient.connect(db_prefix)
         if _dev_client is not None:
             print("# device: using devserve session", file=sys.stderr)
         elif live_daemons():
             # one process per card: a daemon already holds the device
-            raise DeviceError(
-                "a devserve daemon holds the device (%s) but does not "
-                "serve %s; stop it (kma devserve -t_db DB -stop) or map "
-                "against its database" % (", ".join(live_daemons()),
-                                          db_prefix))
+            held = ("a devserve daemon holds the device (%s) but does not "
+                    "serve %s" % (", ".join(live_daemons()), db_prefix))
+            if cfg.device == "on":
+                raise DeviceError(
+                    "%s; stop it (kma devserve -t_db DB -stop) or map "
+                    "against its database" % held)
+            print("# device: %s; this run stays on the host" % held,
+                  file=sys.stderr)
+            _use_dev = False
     if (cfg.one2one and not sparse_db and not cfg.ck
             and not (scan_proxi and scan_proxi.soft is not None)
-            and _device_enabled(cfg, _in_bytes)):
+            and _use_dev):
         if _dev_client is not None:
             from .devserve import RemoteDenseScanner
             from .mapping.scan_stream import DeviceScanStream
@@ -1584,7 +1589,7 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
     # device step-3 pre-pass: heavy lead/trail banded windows scored by
     # the banded-NW scorer (align/nw_device.py; nw.c:892 role)
     _nw_dev = None
-    if use_batch and _device_enabled(cfg, _in_bytes):
+    if use_batch and _use_dev:
         from .align.nw_device import make_nw_prepass
         _nw_dev = make_nw_prepass(_dev_client,
                                   strict=cfg.device == "on")
@@ -1687,7 +1692,7 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
                 fused.map_batch(c_f, c_o, h_f, h_o, ords)
         if pe_files:
             _pe_dev = None
-            if _device_enabled(cfg, _in_bytes):
+            if _use_dev:
                 from .mapping.pe_device import make_pe_lookup
                 _pe_dev = make_pe_lookup(idx, client=_dev_client)
             n_frags = _fused_pe_feed(fused, pe_files, cfg, _mp, n_frags,
@@ -1858,7 +1863,7 @@ def run_kma(db_prefix: str, output_prefix: str, input_files: List[str],
                 _cur_ord[0] = (n_frags - 1) * _nproc + _pid0
 
             chain_dev = None
-            if nchain_b is not None and _device_enabled(cfg, _in_bytes):
+            if nchain_b is not None and _use_dev:
                 # device chain scanner: device hash probes feed the native
                 # chain splicer (mapping/chain_device.py)
                 try:

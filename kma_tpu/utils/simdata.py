@@ -12,19 +12,17 @@ Illumina isolate's worth against the panel:
 - paired-end reads (2 x 100 bp, insert 205) chopped from the panel
   templates, as the paper's chop_DB recipe does;
 - Nanopore-like reads (1-20 kb, ~7% substitutions and indels) that carry
-  a panel gene, or part of one, inside background flanks;
-- mosaic-allele reads (500 bp): 300 bp of a panel gene diverged at 30%
-  substitutions, as in a recombinant variant, then 200 bp that match it.
-  Their unseeded diverged ends are the heavy lead windows the step-3
-  banded-NW pre-pass scores.
+  a panel gene, or part of one, inside background flanks.
+
+make_nw_windows adds seeded banded-NW windows (query, template, band)
+for the kernel checks.
 
 Every file is a pure function of the seed and the sizes.
 
     python -m kma_tpu.utils.simdata -o DIR [--seed 1] [--index] [--small]
                                     [--se N] [--pe N] [--ont N]
 
-writes DIR/panel.fsa, se.fq, pe_1.fq, pe_2.fq, ont.fq and mosaic.fq,
-and with
+writes DIR/panel.fsa, se.fq, pe_1.fq, pe_2.fq and ont.fq, and with
 --index builds DIR/panel.* with the repository's own ``kma index``.
 """
 
@@ -66,12 +64,11 @@ class Sizes:
     ont_min: int = 1000
     ont_max: int = 20000
     ont_err: float = 0.07
-    mosaic: int = 2000
 
 
 SMALL = Sizes(families=6, templates=24, min_len=600, max_len=900,
               max_family=8, se=600, pe=200, ont=8, ont_min=1000,
-              ont_max=2500, se_genes=4, se_mapped=0.5, mosaic=8)
+              ont_max=2500, se_genes=4, se_mapped=0.5)
 
 
 def _family_sizes(rng, n_fam: int, n_tpl: int, cap: int) -> np.ndarray:
@@ -128,6 +125,9 @@ def _fastq_fixed(path: str, prefix: str, reads: np.ndarray,
                  start: int = 0, suffix: str = "") -> None:
     """Fixed-length reads [N, L] u8 codes -> FASTQ, built as one buffer."""
     n, L = reads.shape
+    if n == 0:
+        open(path, "wb").close()
+        return
     head = ["@%s%09d%s\n" % (prefix, i, suffix) for i in range(start,
                                                                start + n)]
     hw = len(head[0])
@@ -226,19 +226,27 @@ def make_ont(rng, seqs, s: Sizes) -> Tuple[List[np.ndarray], np.ndarray]:
     return reads, src
 
 
-def make_mosaic(rng, seqs, s: Sizes, div: int = 300, body: int = 200,
-                rate: float = 0.3) -> Tuple[np.ndarray, np.ndarray]:
-    """Reads of div+body bp: a window of a panel gene (>= div+body+100
-    bp) whose first div bp carry substitutions at ``rate``."""
-    L = div + body
-    ok = np.flatnonzero(np.fromiter((len(q) >= L + 100 for q in seqs),
-                                    bool, len(seqs)))
-    src = rng.choice(ok, s.mosaic)
-    reads = _windows(rng, seqs, src, L)
-    _substitute(rng, reads[:, :div], rate)
-    _substitute(rng, reads[:, div:], s.se_err)
-    _rc_rows(reads, rng.random(s.mosaic) < 0.5)
-    return reads, src
+def make_nw_windows(rng, n: int, max_t: int = 1024,
+                    bands=(64, 80, 100, 126, 128)) -> dict:
+    """n banded-NW windows for the kernel checks: a random template of
+    64..max_t bp, a query of the same bases at 10% substitutions whose
+    length differs by less than half the band, an end flag (kf) and a
+    band of at most 128."""
+    out = {k: [] for k in ("t", "q", "tl", "ql", "kf", "band")}
+    for _ in range(n):
+        band = int(rng.choice(bands))
+        tlen = int(rng.integers(64, max_t))
+        qlen = max(16, tlen + int(rng.integers(-band // 2, band // 2)))
+        t = rng.integers(0, 4, tlen).astype(np.uint8)
+        q = np.resize(t, qlen).copy()
+        ne = rng.binomial(qlen, 0.1)
+        pos = rng.integers(0, qlen, ne)
+        q[pos] = rng.integers(0, 5, ne)
+        for k, v in (("t", t), ("q", q), ("tl", tlen), ("ql", qlen),
+                     ("kf", int(rng.choice([0, 1, -1, 2, -2]))),
+                     ("band", band)):
+            out[k].append(v)
+    return out
 
 
 def write_fasta(path: str, names, seqs) -> None:
@@ -263,8 +271,7 @@ def generate(out_dir: str, seed: int = 1, sizes: Sizes = Sizes(),
     names, seqs, _fam = make_panel(rng, sizes)
     p = {k: os.path.join(out_dir, v) for k, v in (
         ("fasta", "panel.fsa"), ("se", "se.fq"), ("pe1", "pe_1.fq"),
-        ("pe2", "pe_2.fq"), ("ont", "ont.fq"), ("mosaic", "mosaic.fq"),
-        ("db", "panel"))}
+        ("pe2", "pe_2.fq"), ("ont", "ont.fq"), ("db", "panel"))}
     write_fasta(p["fasta"], names, seqs)
     se, _ = make_se(np.random.default_rng([seed, 1]), seqs, sizes)
     _fastq_fixed(p["se"], "se", se)
@@ -273,8 +280,6 @@ def generate(out_dir: str, seed: int = 1, sizes: Sizes = Sizes(),
     _fastq_fixed(p["pe2"], "pe", r2, suffix="/2")
     ont, _ = make_ont(np.random.default_rng([seed, 3]), seqs, sizes)
     write_fastq(p["ont"], "ont", ont)
-    mosaic, _ = make_mosaic(np.random.default_rng([seed, 4]), seqs, sizes)
-    _fastq_fixed(p["mosaic"], "mo", mosaic)
     if index:
         subprocess.run([os.path.join(REPO, "bin", "kma"), "index", "-i",
                         p["fasta"], "-o", p["db"]], check=True,

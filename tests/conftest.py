@@ -186,10 +186,24 @@ def sim_pairs(tmp_path_factory, db50):
 @pytest.fixture(scope="session")
 def panel(tmp_path_factory):
     """Seeded test-sized gene panel (kma_tpu.utils.simdata.SMALL): the
-    indexed panel and its SE, PE, Nanopore and mosaic read sets."""
+    indexed panel and its SE, PE and Nanopore read sets."""
     from kma_tpu.utils import simdata
     d = tmp_path_factory.mktemp("panel")
     return simdata.generate(str(d), seed=1, sizes=simdata.SMALL, index=True)
+
+
+@pytest.fixture(scope="session")
+def long_panel(tmp_path_factory):
+    """200 templates at the panel's widths (600-2,400 bp) and 300
+    Nanopore reads of 1-20 kb: enough long reads that some candidates
+    carry the heavy lead/trail windows of the step-3 NW pre-pass."""
+    import dataclasses
+
+    from kma_tpu.utils import simdata
+    d = tmp_path_factory.mktemp("long_panel")
+    sizes = dataclasses.replace(simdata.Sizes(), families=40, templates=200,
+                                se=0, pe=0, ont=300)
+    return simdata.generate(str(d), seed=1, sizes=sizes, index=True)
 
 
 def run_pair(tmp_path, args, name="run", env=None):

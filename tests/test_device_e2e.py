@@ -40,12 +40,16 @@ def test_device_chain_long_reads(tmp_path, panel):
                         "-bcNano", "-bc", "0.7"])
 
 
-def test_device_nw_prepass_mosaic(tmp_path, panel):
-    """Mosaic-allele reads engage the step-3 NW pre-pass on the device
-    under -device on, byte-identical to the host pre-pass."""
-    err = run_pair(tmp_path, ["-i", panel["mosaic"], "-t_db", panel["db"],
-                              "-1t1"])
+def test_device_nw_prepass_ont(tmp_path, long_panel):
+    """Nanopore reads (-bcNano -bc 0.7, per-component pipeline) engage
+    the step-3 NW pre-pass on the device under -device on,
+    byte-identical to the host pre-pass."""
+    err = run_pair(tmp_path, ["-i", long_panel["ont"], "-t_db",
+                              long_panel["db"], "-bcNano", "-bc", "0.7"],
+                   env=dict(os.environ, KMA_TPU_NO_FUSED="1",
+                            KMA_ALN_PROF="1"))
     assert "nw_windows=0" not in err and "nw_windows=" in err
+    assert "predev 0 " not in err and "predev " in err
 
 
 def test_device_on_refuses_unsupported_db(tmp_path, panel):
@@ -80,7 +84,8 @@ def test_big_db_falls_to_pair_stream(panel, monkeypatch):
     from kma_tpu.mapping.scan_fast import FastScanner
     from kma_tpu.mapping.scan_stream import DeviceScanStream
 
-    monkeypatch.setenv("KMA_TPU_DENSE_BUDGET_MB", "0")
+    from kma_tpu.mapping import scan_dense
+    monkeypatch.setattr(scan_dense, "dense_budget_bytes", lambda: 0)
     db = panel["db"]
     idx = load_index(db)
     pen = Penalties()

@@ -527,3 +527,48 @@ def test_device_on_fails_when_daemon_dies(disk_db, tmp_path, route):
         srv.close()
     assert r.returncode not in (0, 113), r.stderr[-2000:]
     assert "devserve" in r.stderr
+
+
+@pytest.mark.parametrize("device", ["auto", "on"])
+def test_daemon_for_another_db(disk_db, tmp_path, device):
+    """A live daemon that serves another database holds the card: a
+    -device on run refuses to start a second backend beside it, while a
+    -device auto run says so once and maps on the host, byte-equal to
+    -device off."""
+    prefix, reads = disk_db
+    sdir = str(tmp_path / "sock")
+    os.makedirs(sdir)
+    os.environ["KMA_DEVSERVE_DIR"] = sdir
+    try:
+        other = os.path.join(sdir, os.path.basename(
+            socket_path(str(tmp_path / "other_db"))))
+    finally:
+        os.environ.pop("KMA_DEVSERVE_DIR", None)
+    srv = socketlib.socket(socketlib.AF_UNIX)
+    srv.bind(other)
+    srv.listen(4)
+    env = dict(os.environ, KMA_DEVSERVE_DIR=sdir, KMA_TPU_DEVICE_AUTO_MB="0",
+               PYTHONPATH=str(REPO) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    outs = {}
+    try:
+        for dev in (device, "off"):
+            outs[dev] = str(tmp_path / dev)
+            r = subprocess.run(
+                [sys.executable, "-m", "kma_tpu", "-i", reads, "-t_db",
+                 prefix, "-o", outs[dev], "-1t1", "-device", dev],
+                env=env, capture_output=True, text=True, timeout=120)
+            if dev == "on":
+                assert r.returncode != 0
+                assert "does not serve" in r.stderr
+                return
+            assert r.returncode == 0, r.stderr[-2000:]
+            if dev == "auto":
+                assert r.stderr.count("stays on the host") == 1, r.stderr
+    finally:
+        srv.close()
+    for ext in (".res", ".fsa", ".aln"):
+        assert open(outs["auto"] + ext, "rb").read() \
+            == open(outs["off"] + ext, "rb").read(), ext
+    assert gzip.open(outs["auto"] + ".frag.gz").read() \
+        == gzip.open(outs["off"] + ".frag.gz").read()

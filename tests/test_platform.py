@@ -75,11 +75,9 @@ def test_cpu_takes_plain_versions(tiny_db, monkeypatch, prebuilt):  # noqa: F811
     args, kw = _nw_case()
     assert np.asarray(nw_band_score(*args, **kw)).tolist() == [40 * 1] * 4
     assert calls == [1]
-    # of this program's variables only the dense-memory budget override
-    # is consulted (jax reads its own)
+    # none of this program's variables is consulted (jax reads its own)
     ours = {k for k in env.read if k.startswith("KMA")}
-    assert ours <= {"KMA_TPU_DENSE_BUDGET_MB"}, ours
-    assert prebuilt is False or not ours
+    assert not ours, ours
 
 
 @pytest.mark.parametrize("backend", ["rocm", "METAL", "neuron"])

@@ -33,7 +33,7 @@ def test_same_seed_same_bytes(tmp_path, seed):
     a = simdata.generate(str(tmp_path / "a"), seed, simdata.SMALL)
     b = simdata.generate(str(tmp_path / "b"), seed, simdata.SMALL)
     c = simdata.generate(str(tmp_path / "c"), seed + 1, simdata.SMALL)
-    for key in ("fasta", "se", "pe1", "pe2", "ont", "mosaic"):
+    for key in ("fasta", "se", "pe1", "pe2", "ont"):
         assert filecmp.cmp(a[key], b[key], shallow=False), key
         assert not filecmp.cmp(a[key], c[key], shallow=False), key
 
@@ -89,8 +89,14 @@ def test_reads_map_back_to_their_source():
         assert s.ont_min * 0.9 <= len(r) <= s.ont_max * 1.1
         assert len(_kmers(r) | _kmers(rc_codes(r))) and \
             frac(r, seqs[t]) > 0.02
-    mo, src = simdata.make_mosaic(np.random.default_rng(9), seqs, s)
-    assert mo.shape == (s.mosaic, 500)
+    w = simdata.make_nw_windows(np.random.default_rng(9), 64)
+    w2 = simdata.make_nw_windows(np.random.default_rng(9), 64)
+    assert len(w["t"]) == 64 and w["band"] == w2["band"]
+    assert all(np.array_equal(a, b) for a, b in zip(w["q"], w2["q"]))
+    for t, q, tl, ql, band in zip(w["t"], w["q"], w["tl"], w["ql"],
+                                  w["band"]):
+        assert len(t) == tl and len(q) == ql and band <= 128
+        assert abs(ql - tl) <= band // 2 or ql == 16
 
 
 def test_panel_fasta_and_index(panel):
