@@ -29,7 +29,10 @@ cards (__graft_entry__.dryrun_multichip on the generated panel and a
 -mh run (one card each) against the one-process run.
 
 The parent process never starts JAX: every device step runs in a child,
-one at a time, so one process holds a card.  The last line of stdout is
+one at a time, so one process holds a card.  It adopts every orphaned
+descendant (the daemon double-forks) and, at the end, stops and reaps
+whatever is still running; a leftover process fails the run.  The last
+line of stdout is
 {"ok": true, "device": {...}}; any failed phase exits non-zero with the
 cause on stderr and prints no such line.
 """
@@ -43,6 +46,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -69,6 +73,80 @@ def run(cmd, env=None, timeout=900, check=True):
         raise SmokeError("%s exited %d:\n%s" % (" ".join(cmd), p.returncode,
                                                p.stderr[-4000:]))
     return p.returncode, p.stdout, p.stderr
+
+
+def adopt_orphans() -> None:
+    """Become the reaper of every orphaned descendant (the devserve
+    daemon double-forks away from its launcher), so that
+    stop_descendants finds it.  Linux only; elsewhere a no-op."""
+    try:
+        import ctypes
+        ctypes.CDLL(None).prctl(36, 1, 0, 0, 0)  # PR_SET_CHILD_SUBREAPER
+    except (OSError, AttributeError):
+        pass
+
+
+def _children() -> dict:
+    """{pid: state} of this process's children, from /proc."""
+    me, out = os.getpid(), {}
+    try:
+        names = os.listdir("/proc")
+    except OSError:
+        return out
+    for n in names:
+        if not n.isdigit():
+            continue
+        try:
+            with open("/proc/%s/stat" % n) as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == me:
+            out[int(n)] = fields[0]
+    return out
+
+
+def _reap() -> None:
+    try:
+        while os.waitpid(-1, os.WNOHANG)[0]:
+            pass
+    except ChildProcessError:
+        pass
+
+
+def _wait_children(grace: float, zombies_only: bool = False) -> None:
+    """Reap children until none is left (or, with zombies_only, until
+    every one left is running), for at most ``grace`` seconds.  A zombie
+    cannot be reaped while the device runtime's threads still tear its
+    session down."""
+    deadline = time.time() + grace
+    while time.time() < deadline:
+        _reap()
+        kids = _children()
+        if not kids or (zombies_only and "Z" not in kids.values()):
+            return
+        time.sleep(0.1)
+
+
+def stop_descendants(grace: float = 30.0) -> list:
+    """Terminate and reap every process still under this one (SIGTERM,
+    then SIGKILL); returns the pids that were still running, and any
+    child that could not be reaped."""
+    _wait_children(grace, zombies_only=True)
+    left = set()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        running = [p for p, st in _children().items() if st != "Z"]
+        if not running:
+            break
+        left.update(running)
+        for p in running:
+            try:
+                os.kill(p, sig)
+            except ProcessLookupError:
+                pass
+        _wait_children(grace)
+    left.update(_children())
+    return sorted(left)
 
 
 def child(phase: str, work: str, timeout=900) -> dict:
@@ -326,7 +404,8 @@ def phase3(work: str, paths: dict) -> dict:
     sock = os.path.join(work, "sock")
     os.makedirs(sock, exist_ok=True)
     env = dict(os.environ, KMA_DEVSERVE_DIR=sock,
-               KMA_DEVSERVE_LOG=os.path.join(work, "devserve.log"))
+               KMA_DEVSERVE_LOG=os.path.join(work, "devserve.log"),
+               KMA_DEVSERVE_EXIT_WITH=str(os.getpid()))
     os.environ["KMA_DEVSERVE_DIR"] = sock
     db = paths["db"]
     t0 = time.time()
@@ -369,10 +448,14 @@ def phase3(work: str, paths: dict) -> dict:
             log("# phase 3 %s: outputs byte-equal; daemon served %s"
                 % (name, served))
     finally:
-        rc, _, _ = run([KMA, "devserve", "-t_db", db, "-stop"], env=env,
-                       check=False)
-        if rc != 0 and pid:
-            os.kill(pid, 9)
+        # -stop returns once the daemon process has exited
+        rc, _, err = run([KMA, "devserve", "-t_db", db, "-stop"], env=env,
+                         check=False)
+        left = stop_descendants()
+    if rc != 0 or left:
+        raise SmokeError("daemon (pid %s) did not stop: -stop exited %d, "
+                         "still running %s\n%s" % (pid, rc, left, err))
+    log("# phase 3: daemon stopped")
     return res
 
 
@@ -467,6 +550,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     t_start = time.time()
+    adopt_orphans()
     try:
         dev = card()
         if a.four_cards and dev["count"] < 4:
@@ -505,6 +589,12 @@ def main(argv=None) -> int:
     except (SmokeError, subprocess.TimeoutExpired, AssertionError,
             OSError) as err:
         print("chip_smoke: FAILED: %s" % err, file=sys.stderr)
+        return 1
+    finally:
+        left = stop_descendants()
+    if left:
+        print("chip_smoke: FAILED: processes still running at the end "
+              "(now stopped): %s" % left, file=sys.stderr)
         return 1
     log("# card: %s" % _smi_line())
     print(json.dumps({"ok": True, "device": dev}))

@@ -451,6 +451,57 @@ def test_duplicate_daemon_refused_fast(daemon, disk_db):
     assert time.time() - t0 < 45
 
 
+def test_background_daemon_stop_waits_for_exit(disk_db, tmp_path):
+    """`devserve -b` daemonizes; `devserve -stop` returns only once the
+    daemon process has exited, so nothing is left holding the device."""
+    from kma_tpu.devserve import _wait_exit
+    prefix, _ = disk_db
+    env = dict(os.environ, KMA_DEVSERVE_DIR=str(tmp_path),
+               KMA_DEVSERVE_EXIT_WITH=str(os.getpid()),
+               PYTHONPATH=str(REPO) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "kma_tpu", "devserve", "-t_db", prefix]
+    r = subprocess.run(cmd + ["-b", "-batch", "32", "-warm", ""], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    pid = int(r.stderr.rsplit("(pid ", 1)[1].split(")")[0])
+    try:
+        assert not _wait_exit(pid, 0.5), "daemon is not running"
+        r = subprocess.run(cmd + ["-stop"], env=env, capture_output=True,
+                           text=True, timeout=120)
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert _wait_exit(pid, 0), "daemon still running after -stop"
+    finally:
+        if not _wait_exit(pid, 0):
+            os.kill(pid, 9)
+
+
+def test_exited_waits_for_all_threads():
+    """A process whose main thread is a zombie while another thread still
+    runs (as a daemon tearing its device session down) has not exited;
+    once every thread is gone it has, reaped or not."""
+    from kma_tpu.devserve import _exited
+    prog = ("import ctypes, threading, time\n"
+            "threading.Thread(target=time.sleep, args=(2,)).start()\n"
+            "ctypes.CDLL(None).pthread_exit(None)\n")
+    p = subprocess.Popen([sys.executable, "-c", prog])
+    try:
+        deadline = time.time() + 10
+        while time.time() < deadline:
+            with open("/proc/%d/stat" % p.pid) as f:
+                if f.read().rsplit(")", 1)[1].split()[0] == "Z":
+                    break
+            time.sleep(0.05)
+        assert not _exited(p.pid)
+        deadline = time.time() + 10
+        while not _exited(p.pid) and time.time() < deadline:
+            time.sleep(0.05)
+        assert _exited(p.pid)   # a zombie, not yet reaped
+    finally:
+        p.wait(timeout=10)
+    assert _exited(p.pid)
+
+
 def test_stale_socket_and_mismatch(disk_db, tmp_path):
     prefix, _ = disk_db
     os.environ["KMA_DEVSERVE_DIR"] = str(tmp_path)
